@@ -1,0 +1,921 @@
+"""k-ordered FM-index, PyTorch port.
+
+Port of ``kiss_tpu.models.fm_index`` (itself a re-design of the reference
+``FMIndex<SA_INTV, uint32_t, Sorter>``, reference:
+include/biovoltron/algo/align/exact_match/fm_index.hpp:99-652):
+
+  - The build is whole-array tensor code: the BWT by the gather
+    ``text[sa - 1]``, the two-level occ table by masked popcounts over
+    the packed BWT words and exclusive scans, the sampled SA by a boolean
+    mask select. (The TPU build used sorts in place of the gather and the
+    select; the outputs are the same.)
+  - Queries are batched: the backward search (kernel K2,
+    ``csrc/fm_search.cu``) runs one thread per pattern, each LF step
+    reading one fused ``lf_tab`` row; locate (kernel K3,
+    ``csrc/fm_locate.cu``) walks each row to a sampled one, and its stats
+    entry point expands the query ranges, walks and sums the positions in
+    one pass. Each kernel has its plain PyTorch version beside it here,
+    which is what runs on a CPU tensor.
+  - ``save``/``load`` produce byte-identical ``.fmi`` archives
+    (reference: fm_index.hpp:591-646 + serializer.hpp layout).
+
+Dtypes on the device: rows, positions and counts are int64; the 32-bit
+bit tables (``bwt_words``, ``b_words``, ``lf_tab``, ``b_tab``) are int32
+tensors holding the uint32 bits the TPU kept, and ``occ2`` holds uint8
+content in int32. Files keep the reference's ``<u4`` layout.
+
+The per-row walk is exact only when the index was built from a FULLY
+sorted SA; other indexes (bounded ``-k`` builds, archives loaded without
+a ``full_sa`` sidecar) need the range BFS of the JAX package, which is
+not ported yet: such a locate raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from kiss_tpu_torch import kernels
+from kiss_tpu_torch.ops import pack
+from kiss_tpu_torch.ops.suffix_sort import k_ordered_suffix_array
+from kiss_tpu_torch.utils import serializer, timing
+from kiss_tpu_torch.utils.device import resolve_device
+
+OCC1_INTV = 256
+OCC2_INTV = 16
+B_OCC_INTV = 64
+
+# The reference build hardcodes a 32-ordered SA (reference:
+# fm_index.hpp:384-386); this library's default build sorts fully, which
+# keeps the per-row locate walk exact for every pattern length (see the
+# SORT_LEN note in kiss_tpu/models/fm_index.py).
+SORT_LEN = None
+
+
+class FMArrays(NamedTuple):
+    """Device-resident index (fields and shapes as kiss_tpu's)."""
+
+    bwt_words: torch.Tensor  # int32 bits [ceil(N/16)], 2-bit LSB-first
+    occ1: torch.Tensor  # int64 [N//256+1, 4]
+    occ2: torch.Tensor  # int32 [N//16+1, 4] (uint8 content)
+    cnt: torch.Tensor  # int64 [4]
+    pri: torch.Tensor  # int64 scalar: row of the sentinel
+    sa_samp: torch.Tensor  # int64 [ceil(N/SA_INTV)] (or full SA if INTV==1)
+    b_words: torch.Tensor  # int32 bits [2*ceil(N/64)] sampled-row marks
+    b_occ: torch.Tensor  # int64 [N//64+1]
+    lookup: torch.Tensor  # int64 [4^LOOKUP_LEN + 1]
+    # device-only fusions (not serialized): every table an LF step or a
+    # mark probe touches lives in one row
+    #   lf_tab[j] = [occ1[j//16] + occ2[j] for each symbol (4 cols),
+    #                bwt word j]
+    #   b_tab[blk] = [b_occ[blk], b_words[2blk], b_words[2blk+1]]
+    lf_tab: torch.Tensor  # int32 bits [N//16+1, 5]
+    b_tab: torch.Tensor  # int32 bits [N//64+1, 3]
+
+
+_BIT_FIELDS = ("bwt_words", "b_words", "lf_tab", "b_tab")
+
+
+def arrays_from_numpy(d, device) -> FMArrays:
+    """The port's ``FMArrays`` on ``device`` from ``kiss_tpu``'s (given as
+    a mapping of field name -> numpy array, e.g. ``{k: np.asarray(v) for
+    k, v in fmi.arrays._asdict().items()}``): uint32 bit tables become
+    int32 bits, ``occ2`` int32, everything else int64."""
+    dev = resolve_device(device)
+    out = {}
+    for name in FMArrays._fields:
+        x = np.asarray(d[name])
+        if name in _BIT_FIELDS:
+            x = x.astype(np.uint32).view(np.int32)
+        elif name == "occ2":
+            x = x.astype(np.int32)
+        else:
+            x = x.astype(np.int64)
+        out[name] = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return FMArrays(**out)
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+
+def _word_symbol_counts(bwt_words: torch.Tensor, N: int, pri: torch.Tensor):
+    """counts[j, c] = #occurrences of symbol c among the valid rows of
+    16-row block j, straight from the packed BWT words by XOR + masked
+    popcount (the whole-array form of the reference's cnt_table byte
+    scan, fm_index.hpp:158-164). The sentinel row packs as symbol 0 and
+    is subtracted from its block."""
+    W = bwt_words.shape[0]
+    starts = torch.arange(W, dtype=torch.int64, device=bwt_words.device)
+    t = torch.clamp(N - starts * OCC2_INTV, max=OCC2_INTV)
+    cnts = torch.stack(
+        [pack.count_symbol_prefix(bwt_words, c, t) for c in range(4)], dim=1
+    )
+    cnts[:, 0].index_add_(
+        0, (pri // OCC2_INTV).reshape(1),
+        torch.full((1,), -1, dtype=cnts.dtype, device=cnts.device),
+    )
+    return cnts
+
+
+def build_index_device(text: torch.Tensor, sa: torch.Tensor, sa_intv: int):
+    """text int8[n], sa int64[N=n+1] (same device) -> FMArrays (without
+    lookup). Mirrors build_occ/build_bwt/build_sa (reference:
+    fm_index.hpp:277-371) as whole-array tensor code."""
+    n = text.shape[0]
+    N = n + 1
+    dev = text.device
+    sa = sa.to(torch.int64)
+
+    # ---- BWT: bwt[i] = ref[sa[i]-1], 0 at the sentinel row
+    # (reference: fm_index.hpp:310-329)
+    tv = (text.view(torch.uint8) if text.dtype == torch.int8 else text).to(
+        torch.int64
+    )
+    bwt = torch.where(sa == 0, 0, tv[torch.clamp(sa - 1, min=0)])
+    pri = torch.argmin(sa)  # row with sa == 0
+    bwt_words = pack.pack_dibits_u32(bwt)
+    del bwt, tv
+
+    # ---- occ tables (reference: fm_index.hpp:277-308)
+    c16 = _word_symbol_counts(bwt_words, N, pri)  # [ceil(N/16), 4]
+    nb2 = N // OCC2_INTV + 1
+    nb1 = N // OCC1_INTV + 1
+    blocks_per_sup = OCC1_INTV // OCC2_INTV
+    npad2 = nb1 * blocks_per_sup
+    c16p = torch.zeros((npad2, 4), dtype=torch.int64, device=dev)
+    c16p[: c16.shape[0]] = c16
+    grp = c16p.reshape(nb1, blocks_per_sup, 4)
+    # occ2: exclusive cumsum within each 256-superblock (content fits
+    # uint8; full counts only at the occ1 level)
+    occ2 = (torch.cumsum(grp, dim=1) - grp).reshape(npad2, 4)[:nb2].to(
+        torch.int32
+    )
+    sup_tot = grp.sum(dim=1)
+    occ1 = (torch.cumsum(sup_tot, dim=0) - sup_tot)[:nb1]
+    totals = sup_tot.sum(dim=0)
+    # cnt[c] = 1 + sum of totals of smaller symbols (the +1 is the
+    # sentinel, reference: fm_index.hpp:303-307)
+    cnt = torch.cumsum(totals, dim=0) - totals + 1
+
+    # ---- sampled SA + marks (reference: fm_index.hpp:331-371)
+    if sa_intv == 1:
+        b_words = torch.zeros(1, dtype=torch.int32, device=dev)
+        b_occ = torch.zeros(1, dtype=torch.int64, device=dev)
+        sa_samp = sa
+    else:
+        b = sa % sa_intv == 0
+        # an even word count so _b_rank can always read a 64-bit block
+        # as two 32-bit words
+        nw = 2 * (-(-N // 64))
+        bp = torch.zeros(nw * 32, dtype=torch.int64, device=dev)
+        bp[:N] = b
+        shifts = torch.arange(32, device=dev)
+        b_words = pack.to_u32_bits(
+            (bp.reshape(nw, 32) << shifts[None, :]).sum(dim=1)
+        )
+        del bp
+        c64 = _blocked_counts_bool(b, B_OCC_INTV)
+        c64 = c64[: N // B_OCC_INTV + 1]
+        b_occ = torch.cumsum(c64, dim=0) - c64
+        # the marked rows in row order: the sampled SA (the TPU used a
+        # 2-operand sort for this compaction, fm_index.py:213-224)
+        sa_samp = sa[b]
+
+    lookup = torch.tensor([0, N], dtype=torch.int64, device=dev)
+    return FMArrays(
+        bwt_words, occ1, occ2, cnt, pri, sa_samp, b_words, b_occ, lookup,
+        _fuse_lf_tab(occ1, occ2, bwt_words), _fuse_b_tab(b_occ, b_words),
+    )
+
+
+def _fuse_lf_tab(occ1, occ2, bwt_words) -> torch.Tensor:
+    """lf_tab[j] = [absolute per-symbol counts before 16-block j
+    (occ1[j // 16] + occ2[j], 4 cols), packed BWT word j], as uint32 bits:
+    an LF step reads ONE table row. Device-side only; the serialized
+    ``.fmi`` keeps the reference's two-level layout (fm_index.hpp:
+    106-128) byte-exactly."""
+    nb2 = occ2.shape[0]
+    reps = torch.repeat_interleave(
+        occ1.to(torch.int64), OCC1_INTV // OCC2_INTV, dim=0
+    )[:nb2]
+    occf = reps + occ2.to(torch.int64)
+    words = torch.zeros(nb2, dtype=torch.int64, device=occ2.device)
+    k = min(bwt_words.shape[0], nb2)
+    words[:k] = pack.as_u32(bwt_words[:k])
+    return pack.to_u32_bits(torch.cat([occf, words[:, None]], dim=1))
+
+
+def _fuse_b_tab(b_occ, b_words) -> torch.Tensor:
+    """b_tab[blk] = [mark-rank prefix b_occ[blk], mark words 2blk and
+    2blk+1] as uint32 bits: mark probes and mark ranks (compute_b_occ,
+    reference: fm_index.hpp:189-208) each read ONE row."""
+    nb = b_occ.shape[0]
+    w = torch.zeros(2 * nb, dtype=torch.int64, device=b_occ.device)
+    k = min(b_words.shape[0], 2 * nb)
+    w[:k] = pack.as_u32(b_words[:k])
+    return pack.to_u32_bits(
+        torch.stack([b_occ.to(torch.int64), w[0::2], w[1::2]], dim=1)
+    )
+
+
+def _blocked_counts_bool(flags: torch.Tensor, block: int) -> torch.Tensor:
+    n = flags.shape[0]
+    nblk = -(-n // block)
+    fp = torch.zeros(nblk * block, dtype=torch.int64, device=flags.device)
+    fp[:n] = flags
+    return fp.reshape(nblk, block).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# query primitives (plain PyTorch; the kernels' counterparts)
+# ---------------------------------------------------------------------------
+
+
+def _sel4(row4: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """row4[..., c]."""
+    return torch.gather(row4, -1, c.unsqueeze(-1)).squeeze(-1)
+
+
+def _occ(idx: FMArrays, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Vectorized compute_occ (reference: fm_index.hpp:166-182) from ONE
+    ``lf_tab`` row: the absolute counts of all 4 symbols plus the packed
+    BWT word. The sentinel row packs as symbol 0 but counts as none."""
+    row = pack.as_u32(idx.lf_tab[i // OCC2_INTV])
+    t = i % OCC2_INTV
+    partial_cnt = pack.count_symbol_prefix(row[..., 4], c, t)
+    beg = i - t
+    pass_pri = (c == 0) & (beg <= idx.pri) & (idx.pri < i)
+    return _sel4(row[..., :4], c) + partial_cnt - pass_pri.to(torch.int64)
+
+
+def _lf(idx: FMArrays, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    return idx.cnt[c] + _occ(idx, c, i)
+
+
+def _bwt_at(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
+    word = pack.as_u32(idx.lf_tab[i // OCC2_INTV, 4])
+    return (word >> (2 * (i % OCC2_INTV))) & 3
+
+
+def _lf_own_symbol(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
+    """lf(bwt[i], i) (compute_sa's step, reference: fm_index.hpp:
+    210-222)."""
+    return _lf(idx, _bwt_at(idx, i), i)
+
+
+def _b_rank(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
+    """Vectorized compute_b_occ (reference: fm_index.hpp:189-208): marks
+    in rows [0, i) from one ``b_tab`` row."""
+    blk = i // B_OCC_INTV
+    off = i - blk * B_OCC_INTV  # 0..63
+    row = pack.as_u32(idx.b_tab[blk])
+    one = torch.ones_like(off)
+    m0 = (one << torch.clamp(off, max=32)) - 1
+    m1 = (one << torch.clamp(off - 32, min=0)) - 1
+    cnt = pack.popcount_u32(row[..., 1] & m0) + pack.popcount_u32(
+        row[..., 2] & m1
+    )
+    return row[..., 0] + cnt
+
+
+def _b_at(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
+    row = pack.as_u32(idx.b_tab[i // B_OCC_INTV])
+    odd = ((i // 32) % 2) == 1
+    w = torch.where(odd, row[..., 2], row[..., 1])
+    return ((w >> (i % 32)) & 1) == 1
+
+
+def _device_of(idx: FMArrays) -> torch.device:
+    return idx.lf_tab.device
+
+
+def _kernel_inputs(idx: FMArrays, **extra) -> None:
+    """Validate an index (and extra inputs) handed to a kernel."""
+    dev = _device_of(idx)
+    kernels.require(idx.lf_tab, "lf_tab", torch.int32, 2)
+    kernels.require(idx.b_tab, "b_tab", torch.int32, 2)
+    kernels.require(idx.cnt, "cnt", torch.int64, 1)
+    kernels.require(idx.pri, "pri", torch.int64, 0)
+    kernels.require(idx.sa_samp, "sa_samp", torch.int64, 1)
+    kernels.require(idx.lookup, "lookup", torch.int64, 1)
+    kernels.require_cuda(
+        {"lf_tab": idx.lf_tab, "b_tab": idx.b_tab, "cnt": idx.cnt,
+         "pri": idx.pri, "sa_samp": idx.sa_samp, "lookup": idx.lookup,
+         **extra},
+        dev,
+    )
+
+
+# ---------------------------------------------------------------------------
+# K2: backward search
+# ---------------------------------------------------------------------------
+
+
+def get_range_packed_device_plain(idx: FMArrays, qwords: torch.Tensor,
+                                  qlen: int, lookup_len: int,
+                                  early_stop: bool = True):
+    """Plain version of K2: the per-step loop over the whole batch."""
+    q = qwords.shape[0]
+    dev = qwords.device
+    qw = pack.as_u32(qwords)
+
+    def char(j: int) -> torch.Tensor:
+        return (qw[:, j // 16] >> (2 * (j % 16))) & 3
+
+    beg = torch.zeros(q, dtype=torch.int64, device=dev)
+    end = idx.lookup[-1].expand(q).clone()
+    steps = qlen
+    if lookup_len and qlen >= lookup_len:
+        # seed from the lookup table on the last lookup_len characters
+        # (reference: fm_index.hpp:574-584)
+        key = torch.zeros(q, dtype=torch.int64, device=dev)
+        for j in range(qlen - lookup_len, qlen):
+            key = (key << 2) | char(j)
+        beg = idx.lookup[key]
+        end = idx.lookup[key + 1]
+        steps = qlen - lookup_len
+    offs = torch.full((q,), steps, dtype=torch.int64, device=dev)
+    for j in range(steps - 1, -1, -1):
+        # walk characters right-to-left (reference: compute_range,
+        # fm_index.hpp:224-235)
+        c = char(j)
+        nbeg = _lf(idx, c, beg)
+        nend = _lf(idx, c, end)
+        if early_stop:
+            alive = end > beg
+            beg = torch.where(alive, nbeg, beg)
+            end = torch.where(alive, nend, end)
+            offs = torch.where(alive, j, offs)
+        else:
+            beg, end = nbeg, nend
+            offs = torch.full_like(offs, j)
+    return beg, end, offs
+
+
+def get_range_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
+                            lookup_len: int, early_stop: bool = True):
+    """Backward search of Q patterns of length ``qlen``, 2-bit packed
+    (``qwords``: int32 bits [Q, ceil(qlen/16)], symbol j of query q at
+    bits 2*(j%16) of word j//16). Returns (beg, end, offs) int64[Q];
+    ``offs`` counts the unmatched leading characters (0 on success),
+    compute_range's early-stop semantics (reference: fm_index.hpp:
+    224-235). ``early_stop=False`` keeps walking an empty range (the
+    lookup-table build). CUDA tensors launch kernel K2
+    ``fm_backward_search`` (csrc/fm_search.cu); CPU tensors run the plain
+    version."""
+    kernels.require(qwords, "qwords", torch.int32, 2)
+    if qwords.shape[1] != -(-qlen // 16):
+        raise ValueError(
+            f"qwords has {qwords.shape[1]} words per query; qlen {qlen} "
+            f"needs {-(-qlen // 16)}"
+        )
+    if lookup_len and 4**lookup_len + 1 != idx.lookup.shape[0]:
+        raise ValueError("lookup_len does not match the index's lookup table")
+    if qwords.device.type == "cpu":
+        return get_range_packed_device_plain(idx, qwords, qlen, lookup_len,
+                                             early_stop)
+    _kernel_inputs(idx, qwords=qwords)
+    dev = qwords.device
+    q = qwords.shape[0]
+    beg = torch.empty(q, dtype=torch.int64, device=dev)
+    end = torch.empty(q, dtype=torch.int64, device=dev)
+    offs = torch.empty(q, dtype=torch.int64, device=dev)
+    lib = kernels.library()
+    kernels.check(
+        lib.kt_fm_backward_search(
+            idx.lf_tab.data_ptr(), idx.cnt.data_ptr(), idx.pri.data_ptr(),
+            idx.lookup.data_ptr(), idx.lookup.shape[0], qwords.data_ptr(),
+            q, qwords.shape[1], qlen, lookup_len, int(early_stop),
+            beg.data_ptr(), end.data_ptr(), offs.data_ptr(),
+            kernels.stream_of(dev),
+        ),
+        "kt_fm_backward_search",
+    )
+    kernels.count_launch("fm_backward_search")
+    return beg, end, offs
+
+
+def _packed_queries(queries, device) -> torch.Tensor:
+    """Host int8[Q, m] patterns -> int32-bit packed words on ``device``."""
+    words = pack.np_pack_queries_2bit(np.asarray(queries))
+    return torch.from_numpy(words.view(np.int32)).to(device)
+
+
+def get_range_device(idx: FMArrays, queries, lookup_len: int,
+                     early_stop: bool = True):
+    """Backward search for int8[Q, m] patterns (symbols 0..3): packed on
+    the host, then the same kernel as :func:`get_range_packed_device`."""
+    if isinstance(queries, torch.Tensor):
+        queries = queries.cpu().numpy()
+    m = np.asarray(queries).shape[1]
+    return get_range_packed_device(
+        idx, _packed_queries(queries, _device_of(idx)), m, lookup_len,
+        early_stop,
+    )
+
+
+def counts_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
+                         lookup_len: int) -> torch.Tensor:
+    """Per-query occurrence counts (end - beg), int64 -- the count-only
+    form of the batch loop (reference: include/command/
+    fmindex_query.hpp:66-99 accumulates ``occ += end - beg``)."""
+    beg, end, _ = get_range_packed_device(idx, qwords, qlen, lookup_len)
+    return end - beg
+
+
+# ---------------------------------------------------------------------------
+# K3: locate walk and batch stats
+# ---------------------------------------------------------------------------
+
+
+def locate_rows_device_plain(idx: FMArrays, rows: torch.Tensor,
+                             sa_intv: int):
+    """Plain version of K3's row entry point: masked LF walk of at most
+    sa_intv-1 steps until a sampled row, then one sa_samp read."""
+    if sa_intv == 1:
+        return idx.sa_samp[rows]
+    i = rows.to(torch.int64)
+    steps = torch.zeros_like(i)
+    done = _b_at(idx, i)
+    for _ in range(sa_intv - 1):
+        nxt = _lf_own_symbol(idx, i)
+        i = torch.where(done, i, nxt)
+        steps = steps + (~done).to(torch.int64)
+        done = _b_at(idx, i)
+    return idx.sa_samp[_b_rank(idx, i)] + steps
+
+
+def locate_rows_device(idx: FMArrays, rows: torch.Tensor, sa_intv: int):
+    """Text positions (int64) of suffix-array ``rows`` (int64): the
+    vectorized compute_sa (reference: fm_index.hpp:210-222). CUDA
+    tensors launch kernel K3's ``fm_locate_rows`` entry point
+    (csrc/fm_locate.cu); CPU tensors run the plain version."""
+    kernels.require(rows, "rows", torch.int64, 1)
+    if rows.device.type == "cpu":
+        return locate_rows_device_plain(idx, rows, sa_intv)
+    _kernel_inputs(idx, rows=rows)
+    out = torch.empty_like(rows)
+    lib = kernels.library()
+    kernels.check(
+        lib.kt_fm_locate_rows(
+            idx.lf_tab.data_ptr(), idx.b_tab.data_ptr(), idx.cnt.data_ptr(),
+            idx.pri.data_ptr(), idx.sa_samp.data_ptr(), sa_intv,
+            rows.data_ptr(), rows.shape[0], out.data_ptr(),
+            kernels.stream_of(rows.device),
+        ),
+        "kt_fm_locate_rows",
+    )
+    kernels.count_launch("fm_locate_rows")
+    return out
+
+
+def batch_locate_stats_device_plain(idx: FMArrays, beg: torch.Tensor,
+                                    end: torch.Tensor, sa_intv: int):
+    """Plain version of K3's stats entry point: ragged expansion of the
+    ranges into rows, the walk, and the sum."""
+    lens = end - beg
+    total = int(lens.sum())
+    if total == 0:
+        return 0, 0
+    starts = torch.cumsum(lens, dim=0) - lens
+    r = torch.arange(total, dtype=torch.int64, device=beg.device)
+    q = torch.searchsorted(starts, r, right=True) - 1
+    rows = beg[q] + (r - starts[q])
+    pos = locate_rows_device_plain(idx, rows, sa_intv)
+    return total, int(pos.sum())
+
+
+def batch_locate_stats_device(idx: FMArrays, beg: torch.Tensor,
+                              end: torch.Tensor, sa_intv: int):
+    """(total occurrences, location checksum) of the row ranges
+    [beg, end) of a query batch -- the two accumulators of the reference
+    batch loop (reference: include/command/fmindex_query.hpp:87-94) --
+    as Python ints. The checksum is the sum of every located position,
+    the integer that kiss_tpu assembles as sum(lo) + (sum(hi) << 16).
+    CUDA tensors launch kernel K3's ``fm_locate_stats`` entry point, a
+    fused expand + walk + reduce pass (csrc/fm_locate.cu); CPU tensors
+    run the plain version. Nothing but the two integers leaves the
+    device."""
+    kernels.require(beg, "beg", torch.int64, 1)
+    kernels.require(end, "end", torch.int64, 1)
+    if beg.shape != end.shape:
+        raise ValueError("beg and end differ in shape")
+    if beg.device.type == "cpu":
+        return batch_locate_stats_device_plain(idx, beg, end, sa_intv)
+    _kernel_inputs(idx, beg=beg, end=end)
+    lens = end - beg
+    starts = torch.cumsum(lens, dim=0) - lens
+    total = int(lens.sum())
+    if total == 0:
+        return 0, 0
+    checksum = torch.empty(1, dtype=torch.int64, device=beg.device)
+    lib = kernels.library()
+    kernels.check(
+        lib.kt_fm_locate_stats(
+            idx.lf_tab.data_ptr(), idx.b_tab.data_ptr(), idx.cnt.data_ptr(),
+            idx.pri.data_ptr(), idx.sa_samp.data_ptr(), sa_intv,
+            beg.data_ptr(), starts.data_ptr(), beg.shape[0], total,
+            checksum.data_ptr(), kernels.stream_of(beg.device),
+        ),
+        "kt_fm_locate_stats",
+    )
+    kernels.count_launch("fm_locate_stats")
+    return total, int(checksum.item())
+
+
+def _bfs_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "locate on this index needs the range BFS (kiss_tpu's _bfs_emit / "
+        "bfs_locate_device / batch_bfs_stats_device), which is not yet "
+        "ported to kiss_tpu_torch: the index was built from a bounded -k "
+        "sort, or loaded without a full_sa .meta sidecar (pass "
+        "--assume-full-sa only if the archive came from a full sort)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# archive provenance sidecar (verbatim from kiss_tpu.models.fm_index)
+# ---------------------------------------------------------------------------
+
+# The `.fmi` format records no sort depth (reference: fm_index.hpp:
+# 591-646), so builds written by this tool record their provenance in a
+# JSON sidecar next to the archive, bound to the archive's content.
+META_SUFFIX = ".meta"
+_META_PROBE = 1 << 16  # bytes hashed per probe window (large archives)
+_META_STRIDE = 1 << 24  # probe every 16 MiB across large archives
+_META_FULL_HASH = 1 << 28  # archives up to 256 MiB are hashed in full
+
+
+def _archive_fingerprint(fmi_path: str) -> tuple[int, int]:
+    """(size, crc32 over 64 KiB windows every 16 MiB plus the tail):
+    cheap content binding for the sidecar, so a sidecar does not survive
+    the archive being rebuilt by another writer. Archives up to
+    ``_META_FULL_HASH`` are hashed in FULL; larger ones are sampled
+    every 16 MiB plus the tail."""
+    import zlib
+
+    size = os.path.getsize(fmi_path)
+    crc = 0
+    with open(fmi_path, "rb") as f:
+        if size <= _META_FULL_HASH:
+            while True:
+                chunk = f.read(1 << 22)
+                if not chunk:
+                    break
+                crc = zlib.crc32(chunk, crc)
+            return size, crc
+        for off in range(0, size, _META_STRIDE):
+            f.seek(off)
+            crc = zlib.crc32(f.read(_META_PROBE), crc)
+        f.seek(size - _META_PROBE)
+        crc = zlib.crc32(f.read(_META_PROBE), crc)
+    return size, crc
+
+
+def write_meta(fmi_path: str, *, full_sa: bool, sort_len,
+               lookup_len: int) -> None:
+    """Record build provenance for ``fmi_path`` in ``<path>.meta``,
+    bound to the archive's content fingerprint."""
+    size, crc = _archive_fingerprint(fmi_path)
+    meta = {
+        "format": 2,
+        "writer": "kiss-tpu",
+        "full_sa": bool(full_sa),
+        "sort_len": sort_len,
+        "lookup_len": int(lookup_len),
+        "fmi_size": size,
+        "fmi_crc32": crc,
+    }
+    with open(fmi_path + META_SUFFIX, "w") as f:
+        json.dump(meta, f)
+        f.write("\n")
+
+
+def read_meta(fmi_path: str) -> dict | None:
+    """Provenance for ``fmi_path``, or None when the sidecar is absent,
+    unreadable, or no longer matches the archive's content."""
+    try:
+        with open(fmi_path + META_SUFFIX) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(meta, dict):
+        return None
+    if "fmi_size" in meta:
+        try:
+            size, crc = _archive_fingerprint(fmi_path)
+        except OSError:
+            return None
+        if meta.get("fmi_size") != size or meta.get("fmi_crc32") != crc:
+            return None
+    return meta
+
+
+def _ragged_rows(beg: np.ndarray, lens: np.ndarray):
+    """Host-side ragged expansion of per-query [beg, beg+len) row
+    ranges: returns (rows int64[R], starts int64[Q+1]) with
+    rows[starts[q]:starts[q+1]] belonging to query q."""
+    starts = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=starts[1:])
+    total = int(starts[-1])
+    rows = np.repeat(beg.astype(np.int64), lens) + (
+        np.arange(total, dtype=np.int64) - np.repeat(starts[:-1], lens)
+    )
+    return rows, starts
+
+
+def _u32_tensor(x: np.ndarray, dev) -> torch.Tensor:
+    """uint32 host data -> int32-bit tensor on ``dev``."""
+    x = np.ascontiguousarray(x, dtype="<u4").view(np.int32)
+    return torch.from_numpy(x).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# host-facing model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FMIndex:
+    """Host-facing FM-index with the reference's public surface:
+    ``build``, ``get_range``, ``get_offsets``, ``save``, ``load``.
+
+    Template parameters of the reference class become constructor
+    arguments; the CLI instantiation is ``FMIndex(sa_intv=4,
+    lookup_len=0)`` (reference: include/command/fmindex_build.hpp:27-29).
+    ``device`` is where the index lives ("cuda" or "cpu"; CUDA that is
+    not there is an error).
+    """
+
+    sa_intv: int = 4
+    lookup_len: int = 0
+    arrays: FMArrays | None = None
+    n_rows: int = 0  # N = n + 1
+    # True when the index is known built from a FULLY sorted SA: locate
+    # may use the per-row LF walk. False (bounded-sort_len builds,
+    # archives loaded from disk): locate needs the range BFS.
+    full_sa: bool = True
+    device: str | torch.device = "cuda"
+
+    @property
+    def _dev(self) -> torch.device:
+        return resolve_device(self.device)
+
+    # -- build ------------------------------------------------------------
+
+    def build(
+        self, ref: np.ndarray, sa=None, sort_len: int | None = SORT_LEN
+    ) -> "FMIndex":
+        """Build from an int8 reference (values 0..3). Unless a suffix
+        array is supplied, sorts the full suffix order (the reference's
+        counterpart is fm_index.hpp:379-388)."""
+        dev = self._dev
+        ref = np.ascontiguousarray(ref, dtype=np.int8)
+        if sa is None:
+            self.full_sa = (
+                sort_len is None or sort_len < 0 or sort_len >= len(ref)
+            )
+            sa = k_ordered_suffix_array(
+                ref, -1 if sort_len is None else sort_len, as_numpy=False,
+                device=dev,
+            )
+        elif isinstance(sa, torch.Tensor):
+            sa = sa.to(device=dev, dtype=torch.int64)
+        else:
+            sa = torch.from_numpy(np.asarray(sa).astype(np.int64)).to(dev)
+        with timing.stage("fmindex build") as out:
+            arrays = build_index_device(torch.from_numpy(ref).to(dev), sa,
+                                        self.sa_intv)
+            out["block_on"] = arrays
+        self.arrays = arrays
+        self.n_rows = len(ref) + 1
+        self._build_lookup()
+        return self
+
+    def _build_lookup(self) -> None:
+        """Vectorized build_lookup (reference: fm_index.hpp:237-269): one
+        batched backward search of every length-L seed, generated on the
+        device, with ``early_stop=False`` so absent seeds store their
+        sorted insertion point."""
+        N = self.n_rows
+        dev = _device_of(self.arrays)
+        if self.lookup_len == 0:
+            lookup = torch.tensor([0, N], dtype=torch.int64, device=dev)
+        else:
+            L = self.lookup_len
+            keys = torch.arange(4**L, dtype=torch.int64, device=dev)
+            words = torch.zeros(
+                (4**L, -(-L // 16)), dtype=torch.int64, device=dev
+            )
+            for j in range(L):  # symbol j: first = most significant
+                words[:, j // 16] |= ((keys >> (2 * (L - 1 - j))) & 3) << (
+                    2 * (j % 16)
+                )
+            beg, _end, _ = get_range_packed_device(
+                self.arrays, pack.to_u32_bits(words), L, 0, early_stop=False
+            )
+            lookup = torch.cat([beg, torch.tensor([N], device=dev)])
+        self.arrays = self.arrays._replace(lookup=lookup)
+
+    # -- queries ----------------------------------------------------------
+
+    def _routes_to_bfs(self) -> bool:
+        return self.sa_intv != 1 and not self.full_sa
+
+    def _ranges(self, queries: np.ndarray):
+        """Device (beg, end, offs) for int8[Q, m] host patterns."""
+        return get_range_device(self.arrays, queries, self.lookup_len)
+
+    def get_range(self, query: np.ndarray):
+        """Single-pattern range; returns (beg, end, offs)."""
+        beg, end, offs = self.get_ranges(
+            np.asarray(query, dtype=np.int8)[None, :]
+        )
+        return int(beg[0]), int(end[0]), int(offs[0])
+
+    def get_ranges(self, queries: np.ndarray):
+        """Batch backward search: queries int8[Q, m] -> 3 x int64[Q]."""
+        queries = np.ascontiguousarray(queries, dtype=np.int8)
+        return tuple(x.cpu().numpy() for x in self._ranges(queries))
+
+    def counts(self, queries: np.ndarray) -> np.ndarray:
+        """Per-query occurrence counts, uint32[Q] -- the count-only
+        batch loop (reference: include/command/fmindex_query.hpp:66-99
+        with the locate body skipped)."""
+        queries = np.ascontiguousarray(queries, dtype=np.int8)
+        if queries.size == 0:
+            return np.empty(0, dtype=np.uint32)
+        beg, end, _ = self._ranges(queries)
+        return (end - beg).cpu().numpy().astype(np.uint32)
+
+    def locate_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Text positions (uint32) of suffix-array rows (per-row walk)."""
+        rows = np.ascontiguousarray(rows).astype(np.int64)
+        if rows.size == 0:
+            return np.empty(0, dtype=np.uint32)
+        out = locate_rows_device(
+            self.arrays, torch.from_numpy(rows).to(_device_of(self.arrays)),
+            self.sa_intv,
+        )
+        return out.cpu().numpy().astype(np.uint32)
+
+    def get_offsets(self, beg: int, end: int) -> np.ndarray:
+        """Positions for one row range (reference: fm_index.hpp:453-501),
+        by the per-row walk. An index not known to come from a full sort
+        needs the range BFS, which is not yet ported: that raises."""
+        if self._routes_to_bfs():
+            raise _bfs_not_ported()
+        return self.locate_rows(np.arange(beg, end, dtype=np.int64))
+
+    def get_offsets_traditional(self, beg: int, end: int) -> np.ndarray:
+        """Alias of :meth:`get_offsets` for API parity: the reference's
+        "traditional" per-row LF walk (fm_index.hpp:435-447)."""
+        return self.get_offsets(beg, end)
+
+    def fmtree(self, seed: np.ndarray) -> np.ndarray:
+        """Locate by first searching seed[1:] then extending by the first
+        character (reference: fm_index.hpp:503-551). The vectorized
+        locate makes the staging unnecessary; the result set matches."""
+        seed = np.asarray(seed, dtype=np.int8)
+        beg, end, _ = self.get_range(seed)
+        return self.get_offsets(beg, end)
+
+    def batch_query(self, queries: np.ndarray):
+        """Count + locate a batch of equal-length patterns.
+
+        Returns (counts int64[Q], positions uint32[R], starts int64[Q+1])
+        where positions[starts[q]:starts[q+1]] belong to query q
+        (reference: include/command/fmindex_query.hpp:66-99).
+        """
+        if self._routes_to_bfs():
+            raise _bfs_not_ported()
+        beg, end, _ = self.get_ranges(queries)
+        lens = (end - beg).astype(np.int64)
+        rows, starts = _ragged_rows(beg, lens)
+        return lens, self.locate_rows(rows), starts
+
+    def batch_query_stats(self, queries: np.ndarray) -> tuple[int, int]:
+        """(total occurrences, location checksum) for a batch -- the two
+        accumulators of the reference batch loop (reference:
+        include/command/fmindex_query.hpp:87-94). Everything except two
+        integers stays on the device."""
+        queries = np.ascontiguousarray(queries, dtype=np.int8)
+        if queries.size == 0:
+            return 0, 0
+        if self._routes_to_bfs():
+            raise _bfs_not_ported()
+        beg, end, _ = self._ranges(queries)
+        return batch_locate_stats_device(self.arrays, beg, end, self.sa_intv)
+
+    # -- serialization ----------------------------------------------------
+
+    def save(self, fout) -> None:
+        """Byte-compatible ``.fmi`` writer (reference: fm_index.hpp:
+        591-615 + serializer.hpp layout)."""
+        a = self.arrays
+        N = self.n_rows
+
+        def host(x):
+            return x.cpu().numpy()
+
+        def host_u32(x):  # low 32 bits, moved as 4 bytes per entry
+            return host(pack.to_u32_bits(x)).view(np.uint32)
+
+        fout.write(host(a.cnt).astype("<u4").tobytes())
+        fout.write(np.uint32(int(a.pri)).tobytes())
+        # bwt: element count = N, payload = ceil(N/4) bytes
+        bwt_bytes = host(a.bwt_words).view(np.uint32).astype("<u4").tobytes()
+        serializer.save_range(fout, N, bwt_bytes[: serializer.dibit_bytes(N)])
+        occ1 = host_u32(a.occ1).astype("<u4")
+        serializer.save_range(fout, occ1.shape[0], occ1)
+        occ2 = host(a.occ2).astype(np.uint8)
+        serializer.save_range(fout, occ2.shape[0], occ2)
+        sa_samp = host_u32(a.sa_samp).astype("<u4")
+        serializer.save_range(fout, sa_samp.shape[0], sa_samp)
+        lookup = host(a.lookup).astype("<u4")
+        serializer.save_range(fout, lookup.shape[0], lookup)
+        if self.sa_intv != 1:
+            b_bytes = host(a.b_words).view(np.uint32).astype("<u4").tobytes()
+            serializer.save_range(
+                fout, N, b_bytes[: serializer.bit_u64_bytes(N)]
+            )
+            b_occ = host_u32(a.b_occ).astype("<u4")
+            serializer.save_range(fout, b_occ.shape[0], b_occ)
+
+    def load(self, fin) -> "FMIndex":
+        """Byte-compatible ``.fmi`` reader (reference: fm_index.hpp:
+        620-646). The loaded index has ``full_sa = False``: the format
+        records no sort depth."""
+        dev = self._dev
+        cnt = np.frombuffer(fin.read(16), dtype="<u4").copy()
+        pri = np.frombuffer(fin.read(4), dtype="<u4")[0]
+        N, bwt_raw = serializer.load_range(fin, serializer.dibit_bytes)
+        pad = -len(bwt_raw) % 4
+        bwt_words = np.frombuffer(bwt_raw + b"\0" * pad, dtype="<u4").copy()
+        n1, occ1_raw = serializer.load_range(fin, serializer.scalar_bytes(16))
+        occ1 = np.frombuffer(occ1_raw, dtype="<u4").reshape(n1, 4).copy()
+        n2, occ2_raw = serializer.load_range(fin, serializer.scalar_bytes(4))
+        occ2 = np.frombuffer(occ2_raw, dtype=np.uint8).reshape(n2, 4).copy()
+        ns, sa_raw = serializer.load_range(fin, serializer.scalar_bytes(4))
+        sa_samp = np.frombuffer(sa_raw, dtype="<u4").copy()
+        nl, lut_raw = serializer.load_range(fin, serializer.scalar_bytes(4))
+        lookup = np.frombuffer(lut_raw, dtype="<u4").copy()
+        if self.sa_intv != 1:
+            nb, b_raw = serializer.load_range(fin, serializer.bit_u64_bytes)
+            if nb != N:
+                raise ValueError(".fmi archive: mark vector length != N")
+            padb = -len(b_raw) % 4
+            b_words = np.frombuffer(b_raw + b"\0" * padb, dtype="<u4").copy()
+            nbo, bo_raw = serializer.load_range(
+                fin, serializer.scalar_bytes(4)
+            )
+            b_occ = np.frombuffer(bo_raw, dtype="<u4").copy()
+        else:
+            b_words = np.zeros(1, np.uint32)
+            b_occ = np.zeros(1, np.uint32)
+        if fin.read(1):
+            raise ValueError(".fmi archive has trailing bytes")
+
+        self.n_rows = N
+        self.full_sa = False
+        self.lookup_len = max(len(lookup) - 1, 1).bit_length() // 2
+
+        def i64(x):
+            return torch.from_numpy(x.astype(np.int64)).to(dev)
+
+        occ1_d, b_occ_d = i64(occ1), i64(b_occ)
+        occ2_d = torch.from_numpy(occ2.astype(np.int32)).to(dev)
+        bwt_words_d, b_words_d = _u32_tensor(bwt_words, dev), _u32_tensor(
+            b_words, dev
+        )
+        self.arrays = FMArrays(
+            bwt_words=bwt_words_d,
+            occ1=occ1_d,
+            occ2=occ2_d,
+            cnt=i64(cnt),
+            pri=torch.tensor(int(pri), dtype=torch.int64, device=dev),
+            sa_samp=i64(sa_samp),
+            b_words=b_words_d,
+            b_occ=b_occ_d,
+            lookup=i64(lookup),
+            lf_tab=_fuse_lf_tab(occ1_d, occ2_d, bwt_words_d),
+            b_tab=_fuse_b_tab(b_occ_d, b_words_d),
+        )
+        return self
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, FMIndex):
+            return NotImplemented
+        if self.n_rows != other.n_rows or self.sa_intv != other.sa_intv:
+            return False
+        return all(
+            torch.equal(x.cpu(), y.cpu())
+            for x, y in zip(self.arrays, other.arrays)
+        )

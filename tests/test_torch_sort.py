@@ -1,0 +1,181 @@
+"""kiss_tpu_torch.ops.suffix_sort and K1's plain version against
+kiss_tpu, numpy and the reference binary's goldens. Every comparison is
+exact (integers, tolerance 0)."""
+
+import glob
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kiss_tpu.ops import pack as jpack
+from kiss_tpu.ops import suffix_sort as jss
+from kiss_tpu_torch.ops import suffix_sort as tss
+from kiss_tpu_torch.ops.radix_sort import (
+    radix_sort_words,
+    radix_sort_words_plain,
+)
+from tests import oracle
+
+torch.set_num_threads(1)
+
+GOLDEN = sorted(
+    glob.glob(os.path.join(os.path.dirname(__file__), "golden", "*.npz"))
+)
+N_TEXT = 2_000  # one length for every text, so JAX compiles each k once
+
+
+def _bits(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("w,n,high", [(1, 1, 2**32), (5, 3000, 2**32),
+                                      (9, 2500, 2**32), (8, 4000, 3)])
+def test_radix_plain_equals_lexsort(w, n, high):
+    """Stable: ties keep input order, so the permutation is exactly
+    lexsort's with the row index as the last tiebreak."""
+    rng = np.random.default_rng(w * n)
+    keys = rng.integers(0, high, (w, n), dtype=np.uint64).astype(np.uint32)
+    order = np.lexsort([np.arange(n)] + [keys[i] for i in range(w - 1, -1,
+                                                                 -1)])
+    sk, perm = radix_sort_words_plain(_bits(keys))
+    np.testing.assert_array_equal(perm.numpy(), order)
+    np.testing.assert_array_equal(sk.numpy().view(np.uint32), keys[:, order])
+    # on a CPU tensor the wrapper is the plain version
+    sk2, perm2 = radix_sort_words(_bits(keys))
+    assert torch.equal(perm2, perm) and torch.equal(sk2, sk)
+
+
+def test_radix_stable_payload():
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, 2, (8, 5000)).astype(np.uint32)
+    payload = rng.permutation(5000)
+    _, perm = radix_sort_words(_bits(keys))
+    order = np.lexsort([np.arange(5000)] + [keys[i] for i in range(7, -1,
+                                                                   -1)])
+    np.testing.assert_array_equal(payload[perm.numpy()], payload[order])
+
+
+def test_radix_rejects_bad_input():
+    with pytest.raises(TypeError):
+        radix_sort_words(torch.zeros((2, 5), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        radix_sort_words(torch.zeros((10, 5), dtype=torch.int32))
+
+
+def _texts():
+    return {
+        "random": oracle.random_dna(N_TEXT, seed=21),
+        "tandem": oracle.repeat_heavy_dna(N_TEXT, unit=37, seed=22),
+    }
+
+
+@pytest.mark.parametrize("strategy", ["wide", "doubling"])
+@pytest.mark.parametrize("k", [1, 16, 63, 64, 65, 100, 256, -1])
+def test_sa_bit_identical_to_kiss_tpu(k, strategy):
+    for name, text in _texts().items():
+        want = jss.k_ordered_suffix_array(text, k, strategy=strategy)
+        got = tss.k_ordered_suffix_array(text, k, strategy=strategy,
+                                         device="cpu")
+        assert got.dtype == np.uint32
+        np.testing.assert_array_equal(got, want, err_msg=f"{name} k={k}")
+
+
+@pytest.mark.parametrize("k", [100, -1])
+def test_device_form_equals_host_form(k):
+    text = _texts()["tandem"]
+    host = tss.k_ordered_suffix_array(text, k, device="cpu")
+    dev = tss.k_ordered_suffix_array_device(torch.from_numpy(text), k)
+    np.testing.assert_array_equal(dev.numpy(), host.astype(np.int64))
+
+
+def test_tail_refine_step_matches_kiss_tpu():
+    """One compacted refinement step on identical state, with a capacity
+    above the active count (fill rows alias row 0 and write the
+    sentinel through duplicate indices)."""
+    text = oracle.repeat_heavy_dna(N_TEXT, unit=37, seed=22)
+    n = len(text)
+    sa_j, rank_j, _ = jss._seed_sort(jnp.asarray(text), 64, jpack.DNA, True)
+    active_j, m_j = jss._active_rows_of(sa_j, rank_j)
+    m = int(m_j)
+    cap = jss._next_capacity(m, n + 1)
+    assert cap > m > 0
+    rows_j = jss._compact_rows(active_j, cap)
+
+    sa_t = torch.from_numpy(np.asarray(sa_j).astype(np.int64))
+    rank_t = torch.from_numpy(np.asarray(rank_j).astype(np.int64))
+    active_t, m_t = tss._active_rows_of(sa_t, rank_t)
+    assert m_t == m
+    rows_t = tss._compact_rows(active_t, cap)
+    np.testing.assert_array_equal(rows_t.numpy(), np.asarray(rows_j))
+
+    out_j = jss._tail_refine(sa_j, rank_j, rows_j, jnp.int32(64))
+    out_t = tss._tail_refine(sa_t, rank_t, rows_t, m, 64)
+    for name, a, b in zip(("sa", "rank", "rows"), out_j[:3], out_t[:3]):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    assert out_t[3] == int(out_j[3])
+
+
+def test_sorter_facades_and_limits():
+    text = _texts()["tandem"]
+    a = tss.Kiss1Sorter.get_suffix_array_dna(text, 80, device="cpu")
+    b = tss.Kiss2Sorter.get_suffix_array_dna(text, 80, num_threads=8,
+                                             device="cpu")
+    np.testing.assert_array_equal(a, b)  # -t 8 clamps to the one CPU
+    np.testing.assert_array_equal(a, oracle.k_ordered_sa(text, 80))
+    with pytest.raises(NotImplementedError, match="general alphabet"):
+        tss.Kiss1Sorter.get_suffix_array(text, 16, device="cpu")
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 17])
+def test_tiny_texts(n):
+    text = oracle.random_dna(n, seed=n)
+    for k in (1, 5, -1):
+        np.testing.assert_array_equal(
+            tss.k_ordered_suffix_array(text, k, device="cpu"),
+            oracle.k_ordered_sa(text, k if k > 0 else None),
+        )
+
+
+def test_cuda_default_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the rule is about hosts without")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tss.k_ordered_suffix_array(oracle.random_dna(50), 8)
+
+
+def _group_ids(text: np.ndarray, sa: np.ndarray, k: int) -> np.ndarray:
+    """Each SA row's equal-k-prefix group id (tests/test_golden.py)."""
+    n = len(text)
+    pad = np.full(n + k, -1, np.int16)
+    pad[:n] = text
+    win = np.lib.stride_tricks.sliding_window_view(pad, k)[: n + 1]
+    keys = win[sa]
+    neq = np.any(keys[1:] != keys[:-1], axis=1)
+    return np.concatenate([[0], np.cumsum(neq)])
+
+
+@pytest.mark.parametrize("path", GOLDEN, ids=os.path.basename)
+def test_golden_unbounded_bit_identical(path):
+    data = np.load(path)
+    ours = tss.k_ordered_suffix_array(data["text"], -1, device="cpu")
+    np.testing.assert_array_equal(ours, data["sa_kiss1_k-1"])
+    np.testing.assert_array_equal(ours, data["sa_kiss2_k-1"])
+
+
+@pytest.mark.parametrize("path", GOLDEN, ids=os.path.basename)
+@pytest.mark.parametrize("k", [16, 32, 256])
+def test_golden_bounded_tie_group_conformance(path, k):
+    data = np.load(path)
+    text = data["text"]
+    ours = tss.k_ordered_suffix_array(text, k, device="cpu")
+    for algo in ("kiss1", "kiss2"):
+        ref = data[f"sa_{algo}_k{k}"]
+        gids = _group_ids(text, ref, k)
+        gids_ours = _group_ids(text, ours, k)
+        np.testing.assert_array_equal(gids, gids_ours)
+        order_ref = np.lexsort((ref, gids))
+        order_ours = np.lexsort((ours, gids_ours))
+        np.testing.assert_array_equal(ref[order_ref], ours[order_ours])
