@@ -9,13 +9,15 @@ Phases (each prints one line, and any failure raises: the script then
 exits non-zero and prints no result line):
 
   1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-  2. build: the three hand-written kernels (kiss_tpu_torch/csrc/*.cu)
-     compiled by nvcc for sm_90a into kiss_tpu_torch/build/;
+  2. build: the hand-written kernels (kiss_tpu_torch/csrc/*.cu) compiled
+     by nvcc for sm_90a, one process per source, into
+     kiss_tpu_torch/build/;
   3. each kernel against its plain PyTorch version on the card, exact
      (tolerance 0: every output is an integer), on edge cases at
      N = 2**22 + 7: W = 1, all-equal keys, a stable payload, lookup seeds;
   4. the golden outputs of the reference binary (tests/golden/*.npz)
-     reproduced on the card;
+     reproduced on the card, and the ``.fmi`` archives the reference
+     binary wrote loaded and queried through the range BFS;
   5. the main path through ``kiss_tpu_torch.cli.main`` at full width: a
      48,800,648-character synthetic genome (bench.synth_genome) through
      ``suffix_sort -k 256``, ``fmindex_build``, ``fmindex_query -b`` with
@@ -27,9 +29,21 @@ exits non-zero and prints no result line):
      full-size main path hands it: every K1 call of the k = 256 and
      k = -1 sorts, K2 and K3 stats on the CLI's 100,000-query chunks of
      the batch over the 48.8M-char index, K3 rows on the ``-q`` rows;
-  7. step times of the main path and of the plain versions at the same
-     shapes, then one JSON line with each kernel's launches, error and
-     time, and as the last line ``{"ok": true, "device": {...}}``.
+  7. the range-BFS locate path at full width: ``fmindex_build -k 32``
+     through the CLI (its ``.meta`` says ``full_sa: false``), then
+     ``fmindex_query -b`` and ``-q`` on it, and ``-b`` on the full-sort
+     archive with its ``.meta`` removed: occurrences and checksum equal
+     the oracle's, positions equal the full index's per-row walk;
+  8. the probe path: ``kiss_tpu_torch.experiments.micro_kernels`` and
+     ``micro_copy`` through their ``main`` at the probes' own size
+     (48,758,784 elements), launch counters reset just before and read
+     just after; then each probe kernel P1-P7 against its plain version,
+     exact, at those shapes, with its time, the plain version's and the
+     one PyTorch call's where there is one;
+  9. step times of the main path and of the plain versions at the same
+     shapes, then one JSON line with each kernel's launches, error,
+     times and bound, and as the last line ``{"ok": true, "device":
+     {...}}``.
 
 It imports nothing of JAX: bench.py's module level is numpy only.
 """
@@ -49,6 +63,14 @@ N_QUERIES = 1_000_000
 QLEN = 25
 SMALL_N = (1 << 22) + 6  # text length whose suffix count is 2**22 + 7
 CLI_CHUNK = 100_000  # queries per batch_query_stats call of ``-b``
+N_PROBE = 48_758_784  # elements per probe operand: 186 tiles of 2048 x 128
+PROBE_ROWS = 2048
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet). The sheet gives no
+# rate for 32-bit integer arithmetic outside the tensor cores; Hopper runs
+# it on half of the lanes that give the sheet's 67 TFLOP/s in float32.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 67e12 / 2
 
 KERNELS = {
     "radix_sort_words": (
@@ -64,6 +86,17 @@ KERNELS = {
         "kiss_tpu_torch/csrc/fm_locate.cu", "kiss_tpu/models/fm_index.py:583"
     ),
 }
+_PROBES_CU = "kiss_tpu_torch/csrc/micro_probes.cu"
+KERNELS.update({
+    "stream_copy": (_PROBES_CU, "experiments/micro_pallas.py:52"),
+    "one_stage": (_PROBES_CU, "experiments/micro_pallas.py:101"),
+    "tile_sort": (_PROBES_CU, "experiments/micro_pallas.py:147"),
+    "kernel_gather": (_PROBES_CU, "experiments/micro_pallas.py:176"),
+    "copy_grid": (_PROBES_CU, "experiments/micro_copy.py:43"),
+    "copy_2d": (_PROBES_CU, "experiments/micro_copy.py:62"),
+    "run_heavy": (_PROBES_CU, "experiments/micro_copy.py:103"),
+})
+PROBE_NAMES = tuple(KERNELS)[4:]
 
 
 def check(cond, msg: str) -> None:
@@ -250,8 +283,20 @@ def phase_goldens(torch, np):
             fmi.save(buf)
             check(buf.getvalue() == data["fmi"].tobytes(),
                   "random4k .fmi bytes differ from the golden")
+        # the archive the reference binary wrote (32-ordered, no sidecar):
+        # loaded through the port, located by the range BFS
+        loaded = FMIndex(sa_intv=4, device="cuda").load(
+            io.BytesIO(data["fmi"].tobytes())
+        )
+        check(not loaded.full_sa, "a loaded archive must route to the BFS")
+        got = loaded.batch_query_stats(queries)
+        check(got == want,
+              f"{os.path.basename(path)}: reference-written .fmi answers "
+              f"{got} != golden {want}")
     say(f"goldens on the card: {len(paths)} fixtures, k=-1 SA bit-identical, "
-        "random4k .fmi byte-identical, query_stats equal")
+        "random4k .fmi byte-identical, query_stats equal; the "
+        f"{len(paths)} reference-written .fmi loaded and answered through "
+        "the range BFS with the stored query_stats")
 
 
 def oracle_stats(torch, text_dev, pats_dev):
@@ -300,6 +345,125 @@ def check_k_sorted_sample(torch, text_dev, sa, k: int, samples: int):
     check(bool(ok.all()), "k=256 SA sample out of order")
 
 
+def bound_ms(bytes_moved: float, int_ops: float):
+    """(least milliseconds the card could take, what bounds it): the
+    larger of the bytes over the memory rate and the integer operations
+    over the integer rate."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
+def phase_probe_path(torch, kernels):
+    """The probe entry points as a user runs them, counters reset just
+    before and read just after."""
+    from kiss_tpu_torch.experiments import micro_copy, micro_kernels
+
+    kernels.reset_launch_counts()
+    for mod in (micro_kernels, micro_copy):
+        check(mod.main(["--device", "cuda"]) == 0,
+              f"{mod.__name__}.main failed")
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in PROBE_NAMES}
+    check(all(v > 0 for v in launches.values()),
+          f"a probe kernel was never launched by the probe path: {launches}")
+    return launches
+
+
+def phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds):
+    """P1-P7 against their plain versions at the probes' shapes, exact,
+    with the kernel's, the plain version's and the PyTorch call's time."""
+    import math
+
+    from kiss_tpu_torch.experiments import micro_copy as mc
+    from kiss_tpu_torch.experiments import micro_kernels as mk
+
+    dev = torch.device("cuda")
+    n, rows = N_PROBE, PROBE_ROWS
+    k, v = mk.probe_inputs(n, dev)
+    gb = n * 4 / 1e9
+    notes = []
+
+    def run(name, kernel_fn, plain_fn, library_fn=None):
+        """Compare, then time; returns (kernel, plain, library) ms."""
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            err[name] = max(err[name], exact(g, w))
+        del got, want
+        return (cuda_ms(kernel_fn, 5), cuda_ms(plain_fn, 2),
+                cuda_ms(library_fn, 5) if library_fn else None)
+
+    def keep(name, times, bytes_moved, int_ops):
+        ms[name], plain_ms[name], library_ms[name] = times
+        bounds[name] = bound_ms(bytes_moved, int_ops)
+
+    def fmt(times):
+        return " / ".join("none" if t is None else f"{t:.3f}" for t in times)
+
+    t = run("stream_copy", lambda: mk.stream_copy(k, rows),
+            lambda: mk.stream_copy_plain(k, rows), lambda: k + 1)
+    keep("stream_copy", t, 8 * n, n)
+    notes.append(f"stream_copy {fmt(t)} -> {2 * gb / t[0] * 1e3:.0f} GB/s "
+                 f"(x + 1: {2 * gb / t[2] * 1e3:.0f} GB/s)")
+
+    for d in (1, 128, 1 << 16):
+        t = run("one_stage", lambda: mk.one_stage(k, v, rows, d, d),
+                lambda: mk.one_stage_plain(k, v, rows, d, d))
+        if d == 128:  # one compare of (key, payload) per element
+            keep("one_stage", t, 16 * n, n)
+        notes.append(f"one_stage d={d} {fmt(t)} -> "
+                     f"{4 * gb / t[0] * 1e3:.0f} GB/s")
+
+    for r in (256, 1024, rows):
+        key = mk.sort_key(k, v).reshape(-1, r * mk.LANES)
+        t = run("tile_sort", lambda: mk.tile_sort(k, v, r),
+                lambda: mk.tile_sort_plain(k, v, r),
+                lambda: torch.sort(key, dim=1))
+        del key
+        lg = math.log2(r * mk.LANES)
+        if r == rows:  # n log2(T) compares: the least a comparison sort does
+            keep("tile_sort", t, 16 * n, n * lg)
+        notes.append(f"tile_sort T={r * mk.LANES // 1024}K {fmt(t)} -> "
+                     f"{t[0] / (lg * (lg + 1) / 2):.4f} ms per "
+                     "stage-equivalent")
+
+    for entries in (1 << 15, 1 << 16):
+        table = k.reshape(-1)[:entries]
+        idx = v % entries
+        t = run("kernel_gather", lambda: mk.kernel_gather(table, idx, rows),
+                lambda: mk.kernel_gather_plain(table, idx, rows),
+                lambda: table[idx])
+        if entries == 1 << 16:
+            keep("kernel_gather", t, 8 * n + 4 * entries, 0)
+        notes.append(f"kernel_gather {entries >> 10}K table {fmt(t)} -> "
+                     f"{n / t[0] / 1e6:.1f} G elements/s")
+        del table, idx
+
+    for r in (128, 512, 8192, 32768):  # the other tile sizes of the sweep
+        err["copy_grid"] = max(err["copy_grid"],
+                               exact(mc.copy_grid(k, r), k))
+    t = run("copy_grid", lambda: mc.copy_grid(k, rows),
+            lambda: mc.copy_grid_plain(k, rows), k.clone)
+    keep("copy_grid", t, 8 * n, 0)
+    notes.append(f"copy_grid {fmt(t)} -> {2 * gb / t[0] * 1e3:.0f} GB/s "
+                 f"(clone: {2 * gb / t[2] * 1e3:.0f} GB/s)")
+    t = run("copy_2d", lambda: mc.copy_2d(k, rows),
+            lambda: mc.copy_2d_plain(k, rows), k.clone)
+    keep("copy_2d", t, 8 * n, 0)
+    notes.append(f"copy_2d {fmt(t)} -> {2 * gb / t[0] * 1e3:.0f} GB/s")
+    t = run("run_heavy", lambda: mc.run_heavy(k, rows),
+            lambda: mc.run_heavy_plain(k, rows))
+    keep("run_heavy", t, 8 * n, 128 * n)
+    notes.append(f"run_heavy {fmt(t)} -> {n * 128 / t[0] / 1e9:.2f} Tops/s")
+    say(f"probes vs plain on {smi} at N={n}, rows={rows} (exact, tolerance "
+        "0; kernel / plain / PyTorch call ms): " + "; ".join(notes))
+
+
 def main() -> int:
     import torch
 
@@ -339,7 +503,8 @@ def main() -> int:
 
     # ---- 2. build
     build_s = kernels.timed_build()
-    say(f"build: nvcc sm_90a of kiss_tpu_torch/csrc/*.cu -> "
+    say(f"build: nvcc sm_90a of {len(kernels.SOURCES)} sources in "
+        f"kiss_tpu_torch/csrc/, one process each -> "
         f"{os.path.relpath(kernels.library_path(), ROOT)} in {build_s:.3f} s")
 
     # ---- 3. kernels against their plain versions
@@ -377,7 +542,8 @@ def main() -> int:
     ):
         rc, steps[name] = wall_s(lambda argv=argv: cli.main(argv))
         check(rc == 0, f"{name} returned {rc}")
-    launches = dict(kernels.LAUNCHES)
+    launches = {name: kernels.LAUNCHES[name] for name in KERNELS
+                if name not in PROBE_NAMES}
     peak_bytes = torch.cuda.max_memory_allocated()
     logging.getLogger().removeHandler(logs)
     check(all(v > 0 for v in launches.values()),
@@ -466,7 +632,7 @@ def main() -> int:
     ]
     check(tuple(map(sum, zip(*chunk_stats))) == (occ, checksum),
           "the chunks' kernel stats do not add up to the CLI's")
-    (beg, end, _), _ = compare_ranges(qw)  # the whole batch, as timed below
+    (beg, end, offs), _ = compare_ranges(qw)  # the whole batch, as timed below
     qb, qe, _ = fm.get_range_device(
         arrays, codec.to_istring(q_pattern)[None, :], L
     )
@@ -488,7 +654,102 @@ def main() -> int:
         f"{N_QUERIES}-query batch, lookup {L}; K3 rows on the -q rows "
         f"({rows.shape[0]}) and {N_QUERIES} random rows: all equal")
 
-    # ---- 7. step and kernel times, kernels vs plain versions
+    # ---- 7. the range-BFS locate path at full width
+    fa32 = os.path.join(tmp, "genome_k32.fa")
+    fa_nometa = os.path.join(tmp, "genome_nometa.fa")
+    os.symlink(fa, fa32)
+    os.symlink(fa, fa_nometa)
+    os.link(fa + ".fmi", fa_nometa + ".fmi")  # the full-sort archive alone
+    lens = end - beg
+    # the batch's most frequent pattern among those found at most 200 times
+    qi = int(torch.argmax(torch.where(lens <= 200, lens, 0)))
+    bfs_pattern = codec.to_string(pats[qi])
+    logging.getLogger().addHandler(logs)
+
+    def run_cli(name, argv):
+        del logs.lines[:]
+        rc, steps[name] = wall_s(lambda: cli.main(argv))
+        check(rc == 0, f"{name} returned {rc}")
+
+    def batch_stats():
+        return (int(logs.value("number of matched locations: ")),
+                int(logs.value("location checksum: ")))
+
+    kernels.reset_launch_counts()
+    run_cli("fmindex_build -k 32", ["fmindex_build", "-k", "32", fa32])
+    meta32 = fm.read_meta(fa32 + ".fmi")
+    check(meta32 is not None and meta32.get("full_sa") is False
+          and meta32.get("sort_len") == 32,
+          f"-k 32 .meta does not say full_sa: false, sort_len 32: {meta32}")
+    run_cli("fmindex_query -b (BFS, -k 32)",
+            ["fmindex_query", "-b", batch, fa32])
+    check(batch_stats() == (occ, checksum),
+          f"BFS -b on the -k 32 archive: {batch_stats()} != the oracle's "
+          f"{(occ, checksum)}")
+    run_cli("fmindex_query -q (BFS, -k 32)",
+            ["fmindex_query", "-q", bfs_pattern, "-n", "200", fa32])
+    found32 = int(logs.value(f"query = {bfs_pattern} found ").split()[0])
+    shown32 = sorted(
+        int(m.split(" position is ")[1].split(",")[0])
+        for m in logs.lines if m.startswith("The ")
+    )
+    check(fm.read_meta(fa_nometa + ".fmi") is None, "stray .meta")
+    run_cli("fmindex_query -b (BFS, .meta removed)",
+            ["fmindex_query", "-b", batch, fa_nometa])
+    check(batch_stats() == (occ, checksum),
+          f"BFS -b on the full-sort archive without .meta: {batch_stats()} "
+          f"!= {(occ, checksum)}")
+    bfs_launches = dict(kernels.LAUNCHES)
+    logging.getLogger().removeHandler(logs)
+    walk_rows = torch.arange(int(beg[qi]), int(end[qi]), device=dev)
+    walked = sorted(fm.locate_rows_device(arrays, walk_rows, 4).tolist())
+    check(found32 == int(lens[qi]) and shown32 == walked,
+          "BFS -q positions differ from the full index's per-row walk")
+    check(bfs_launches["radix_sort_words"] > 0
+          and bfs_launches["fm_backward_search"] > 0
+          and bfs_launches["fm_locate_stats"] == 0
+          and bfs_launches["fm_locate_rows"] == 0,
+          f"the BFS path's launches are not K1 + K2 only: {bfs_launches}")
+
+    # the library's batch_query on both indexes: per query, the same
+    # positions (the BFS orders them by depth, the walk by row)
+    fmi32 = fm.FMIndex(sa_intv=4, device=dev)
+    with open(fa32 + ".fmi", "rb") as f:
+        fmi32.load(f)
+    check(not fmi32.full_sa, "a loaded archive must route to the BFS")
+    fmi.full_sa = True  # it was built from the full sort (.meta said so)
+    l32, p32, s32 = fmi32.batch_query(pats[:CLI_CHUNK])
+    lf, pf, sf = fmi.batch_query(pats[:CLI_CHUNK])
+    qid = np.repeat(np.arange(CLI_CHUNK), lf)
+    check(np.array_equal(l32, lf) and np.array_equal(s32, sf)
+          and np.array_equal(p32[np.lexsort((p32, qid))],
+                             pf[np.lexsort((pf, qid))]),
+          "batch_query by the BFS differs from the per-row walk")
+    b32, e32, _ = fm.get_range_packed_device(fmi32.arrays, qw, QLEN,
+                                             fmi32.lookup_len)
+    check(fm.batch_bfs_stats_device(fmi32.arrays, b32, e32, 4)
+          == (occ, checksum), "BFS stats of the whole batch")
+    bfs_ms = cuda_ms(
+        lambda: fm.batch_bfs_stats_device(fmi32.arrays, b32, e32, 4), 3
+    )
+    bfs_chunk_ms = cuda_ms(
+        lambda: fm.batch_bfs_stats_device(
+            fmi32.arrays, b32[:CLI_CHUNK], e32[:CLI_CHUNK], 4), 3
+    )
+    say(f"BFS path n={N_TEXT}: fmindex_build -k 32 wrote .meta full_sa "
+        f"false; -b on it and on the full-sort archive without .meta give "
+        f"occ {occ} and checksum {checksum} (the oracle's); -q "
+        f"{bfs_pattern} found {found32}, positions equal the per-row walk; "
+        f"batch_query of {CLI_CHUNK} patterns ({int(lf.sum())} positions) "
+        f"equal per query; launches {bfs_launches}")
+    del fmi32, b32, e32
+
+    # ---- 8. the probe path, then the probes against their plain versions
+    launches.update(phase_probe_path(torch, kernels))
+    ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
+    phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds)
+
+    # ---- 9. step and kernel times, kernels vs plain versions
     def build_with(sort_impl):
         sa = sort_with(sort_impl, -1)
         return fm.build_index_device(text_dev, sa, 4)
@@ -502,11 +763,15 @@ def main() -> int:
         _, t_p = wall_s(lambda: fn(radix_sort_words_plain))
         _, t_k2 = wall_s(lambda: fn(radix_sort_words))
         times[label] = (min(t_k, t_k2), t_p)
-    ms, plain_ms = {}, {}
     w5 = seed_sort_words(text_dev)
     ms["radix_sort_words"] = cuda_ms(lambda: radix_sort_words(w5), 5)
     plain_ms["radix_sort_words"] = cuda_ms(
         lambda: radix_sort_words_plain(w5), 3
+    )
+    # K1 bound: the W key words read and written once, the permutation
+    # written (8 bytes a key); one digit step per key byte
+    bounds["radix_sort_words"] = bound_ms(
+        2 * w5.numel() * 4 + 8 * w5.shape[1], w5.numel() * 4
     )
     del w5
     ms["fm_backward_search"] = cuda_ms(
@@ -527,6 +792,35 @@ def main() -> int:
     plain_ms["fm_locate_rows"] = cuda_ms(
         lambda: fm.locate_rows_device_plain(arrays, rows, 4), 20
     )
+    # K2 and K3 bounds count what this run's data needs: the LF steps the
+    # queries really take (early stop) and the walk steps the rows really
+    # take (a row at text position p walks p % sa_intv steps), one 20-byte
+    # lf_tab row per step and bound, one 12-byte b_tab row per mark probe,
+    # 8 bytes per sa_samp read -- but no table counted beyond its size,
+    # since each input byte counts once
+    def table_bytes(lf_rows, b_rows, samp_reads):
+        return (min(arrays.lf_tab.numel() * 4, lf_rows * 20)
+                + min(arrays.b_tab.numel() * 4, b_rows * 12)
+                + min(arrays.sa_samp.numel() * 8, samp_reads * 8))
+
+    lf_steps = int(((QLEN - L if L and QLEN >= L else QLEN) - offs).sum())
+    bounds["fm_backward_search"] = bound_ms(
+        qw.numel() * 4 + 24 * N_QUERIES + table_bytes(2 * lf_steps, 0, 0),
+        2 * lf_steps * 16,  # about 16 integer operations per LF
+    )
+    for name, pos, io_bytes in (
+        ("fm_locate_stats", fm.bfs_locate_device(arrays, beg, end, 4),
+         16 * N_QUERIES + 8),
+        ("fm_locate_rows", fm.locate_rows_device(arrays, rows, 4),
+         16 * rows.shape[0]),
+    ):
+        walk = int((pos % 4).sum())
+        bounds[name] = bound_ms(
+            io_bytes + table_bytes(walk, walk + pos.shape[0], pos.shape[0]),
+            walk * 16 + pos.shape[0] * 8,
+        )
+    for name in bounds:
+        library_ms.setdefault(name, None)  # K1-K3: no one PyTorch call
     times["query counts (1M x 25, K2)"] = (
         ms["fm_backward_search"] / 1e3, plain_ms["fm_backward_search"] / 1e3
     )
@@ -537,14 +831,19 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
         + f", searching time {search_s:.3f}; library sort k=256 "
         f"{sort_s:.3f}; kernel path vs plain: "
-        + ", ".join(f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in times.items()))
+        + ", ".join(f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in times.items())
+        + f"; range BFS stats (plain PyTorch ops) of the 1M ranges "
+        f"{bfs_ms / 1e3:.4f} and of one {CLI_CHUNK}-query chunk "
+        f"{bfs_chunk_ms / 1e3:.4f}, beside K3 stats")
 
     tmpdir.cleanup()
     check(sys.modules.get("jax") is None, "jax was imported")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         "ms": ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library_ms[name]}
         for name, (src, rep) in KERNELS.items()
     ]}
     print(json.dumps(report), flush=True)

@@ -10,10 +10,12 @@ Public API mirrors ``kiss_tpu``'s module and function names:
   - FM-index: :mod:`kiss_tpu_torch.models.fm_index`
   - CLI: ``python -m kiss_tpu_torch suffix_sort|fmindex_build|
     fmindex_query ... [--device cuda|cpu]``
+  - hardware probes: ``python -m kiss_tpu_torch.experiments.micro_kernels``
+    and ``... micro_copy``
 
 Hand-written CUDA kernels (``kiss_tpu_torch/csrc/``) carry the multi-word
-sort, the backward search and the locate walk on the GPU; each has a
-plain PyTorch version that runs on CPU tensors.
+sort, the backward search, the locate walk and the probes on the GPU;
+each has a plain PyTorch version that runs on CPU tensors.
 """
 
 VERSION = "1.0.0"

@@ -7,6 +7,11 @@ working. One flag is new: ``--device`` (default ``cuda``) names where the
 work runs; a CUDA device that is not there is an error, never a quiet
 move to the CPU.
 
+``fmindex_query`` routes locate by the archive's ``.meta`` sidecar: the
+per-row walk when it records a full sort, the range BFS otherwise
+(``fmindex_build -k N`` archives, archives whose sidecar is absent or
+stale, archives written by the reference binary).
+
 Not yet ported (each raises ``NotImplementedError`` naming itself):
 ``-s LMS_INDUCED``, ``--external`` and the automatic out-of-core route,
 ``-t N`` over more than one visible device, and ``serve``.

@@ -1,9 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The three kernels (``csrc/radix_sort.cu``, ``csrc/fm_search.cu``,
-``csrc/fm_locate.cu``) have a plain C interface. They are compiled by
-``nvcc`` for ``sm_90a`` into one shared library under
-``kiss_tpu_torch/build/`` at first use, and loaded with ``ctypes``.
+The kernel sources (``csrc/radix_sort.cu``, ``csrc/fm_search.cu``,
+``csrc/fm_locate.cu``, ``csrc/micro_probes.cu``) have a plain C
+interface. They are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc``
+process per source and all started together, and linked into one shared
+library under ``kiss_tpu_torch/build/`` at first use, which is loaded
+with ``ctypes``.
 The library's file name carries a hash of the sources and flags, so an
 edited source is rebuilt and a current build is reused. Nothing here
 runs when the module is imported: a machine without ``nvcc`` or a GPU
@@ -30,11 +32,12 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("radix_sort.cu", "fm_search.cu", "fm_locate.cu")
+SOURCES = ("radix_sort.cu", "fm_search.cu", "fm_locate.cu",
+           "micro_probes.cu")
 HEADERS = ("fm_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 LAUNCHES = {
@@ -42,6 +45,13 @@ LAUNCHES = {
     "fm_backward_search": 0,
     "fm_locate_rows": 0,
     "fm_locate_stats": 0,
+    "stream_copy": 0,
+    "one_stage": 0,
+    "tile_sort": 0,
+    "kernel_gather": 0,
+    "copy_grid": 0,
+    "copy_2d": 0,
+    "run_heavy": 0,
 }
 
 
@@ -80,36 +90,46 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libkiss_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Start every command at once, wait for all, raise on a failure."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed (" + " ".join(cmd) + "):\n" + out)
+
+
 def build() -> str:
     """Compile the kernels if no current build exists; return the path.
-    The library is linked into a temporary file and moved into place,
-    so a concurrent loader never sees a partial file."""
+    Each source becomes an object file by its own ``nvcc`` process (all
+    run at once), then one link makes the library. Everything is made in
+    a temporary directory and the library moved into place, so a
+    concurrent loader never sees a partial file."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-            os.path.join(CSRC, s) for s in SOURCES
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (" + " ".join(cmd) + "):\n" + proc.stdout
-                + proc.stderr
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, s), "-o", obj]
+            for s, obj in zip(SOURCES, objects)
+        ])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]])
+        os.replace(lib, path)
     return path
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 _SIGNATURES = {
     "kt_radix_digit_counts": [_P, _I, _L, _P, _P],
     "kt_radix_sort_pass": [_P, _P, _P, _P, _L, _I, _P, _P, _P],
@@ -119,6 +139,13 @@ _SIGNATURES = {
     ],
     "kt_fm_locate_rows": [_P, _P, _P, _P, _P, _I, _P, _L, _P, _P],
     "kt_fm_locate_stats": [_P, _P, _P, _P, _P, _I, _P, _P, _L, _L, _P, _P],
+    "kt_probe_stream_copy": [_P, _P, _L, _L, _P],
+    "kt_probe_copy_grid": [_P, _P, _L, _L, _P],
+    "kt_probe_heavy": [_P, _P, _L, _L, _U, _U, _P],
+    "kt_probe_copy_2d": [_P, _P, _L, _L, _P],
+    "kt_probe_gather": [_P, _I, _P, _P, _L, _L, _I, _P],
+    "kt_probe_one_stage": [_P, _P, _P, _P, _L, _L, _L, _L, _P],
+    "kt_probe_tile_sort": [_P, _P, _P, _P, _L, _L, _P],
 }
 
 

@@ -26,8 +26,11 @@ content in int32. Files keep the reference's ``<u4`` layout.
 
 The per-row walk is exact only when the index was built from a FULLY
 sorted SA; other indexes (bounded ``-k`` builds, archives loaded without
-a ``full_sa`` sidecar) need the range BFS of the JAX package, which is
-not ported yet: such a locate raises ``NotImplementedError``.
+a ``full_sa`` sidecar, archives written by the reference binary, which
+are 32-ordered) locate through the range BFS (``_bfs_emit``), which
+applies LF to range endpoints only and is exact on any k-ordered source
+SA with k >= sa_intv - 1 + pattern length. The BFS is plain PyTorch ops
+(in the JAX package it is jitted XLA, not a hand-written kernel).
 """
 
 from __future__ import annotations
@@ -268,6 +271,24 @@ def _lf_own_symbol(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
     """lf(bwt[i], i) (compute_sa's step, reference: fm_index.hpp:
     210-222)."""
     return _lf(idx, _bwt_at(idx, i), i)
+
+
+def _lf_all4(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
+    """lf(c, i) for ALL 4 symbols from ONE ``lf_tab`` row gather, shape
+    [..., 4]: the fused row carries every symbol's absolute count plus
+    the packed word, so a 4-way range expansion costs one gather per
+    endpoint, not four (reference runs compute_occ once per (symbol,
+    bound), fm_index.hpp:453-501 + 166-182)."""
+    row = pack.as_u32(idx.lf_tab[i // OCC2_INTV])
+    t = i % OCC2_INTV
+    occ = row[..., :4] + torch.stack(
+        [pack.count_symbol_prefix(row[..., 4], c, t) for c in range(4)],
+        dim=-1,
+    )
+    # the sentinel row packs as symbol 0 but counts as none
+    pass_pri = (i - t <= idx.pri) & (idx.pri < i)
+    occ[..., 0] -= pass_pri.to(torch.int64)
+    return idx.cnt + occ
 
 
 def _b_rank(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
@@ -530,14 +551,84 @@ def batch_locate_stats_device(idx: FMArrays, beg: torch.Tensor,
     return total, int(checksum.item())
 
 
-def _bfs_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "locate on this index needs the range BFS (kiss_tpu's _bfs_emit / "
-        "bfs_locate_device / batch_bfs_stats_device), which is not yet "
-        "ported to kiss_tpu_torch: the index was built from a bounded -k "
-        "sort, or loaded without a full_sa .meta sidecar (pass "
-        "--assume-full-sa only if the archive came from a full sort)"
-    )
+# ---------------------------------------------------------------------------
+# range BFS: locate on an index whose source SA is only k-ordered
+# ---------------------------------------------------------------------------
+
+
+def _bfs_emit(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
+              sa_intv: int) -> torch.Tensor:
+    """Vectorized FMTree BFS (reference: fm_index.hpp:453-501).
+
+    Expands every query range by all 4 symbols per depth -- lf applied
+    to RANGE ENDPOINTS only, never per row -- and emits, at each depth d,
+    the sa_samp span of marked rows inside each range, +d. Endpoint lf
+    is pure counting, so this is exact for an index whose source SA is
+    only k-ordered (k >= sa_intv - 1 + pattern length), in particular
+    for ``.fmi`` archives written by the reference binary (its build is
+    32-ordered, fm_index.hpp:384-386), where the per-row walk returns
+    wrong positions on long repeats. The reference expands singleton
+    ranges via bwt[beg] only (fm_index.hpp:486-489); uniform all-4
+    expansion is the same set (the other 3 subranges are empty).
+
+    Each occurrence at text position p is emitted exactly once, at depth
+    p % sa_intv, so the emission count equals sum(end - beg). Returns the
+    positions, int64[sum(end - beg)], in kiss_tpu's order: query-major,
+    within a query by depth, within a depth by column (child = parent * 4
+    + symbol). The output is sized by the true total (one host sync), so
+    there is no capacity padding and no validity mask.
+
+    Memory: the widest intermediate is the ``lf_tab`` row gather of the
+    last widening, int64 [Q, 4 ** (sa_intv - 2), 5] per endpoint (64 MB
+    at Q = 100,000, sa_intv = 4).
+    """
+    Q = beg.shape[0]
+    dev = beg.device
+    bs, es = beg[:, None], end[:, None]
+    seg_b, seg_l, seg_d = [], [], []
+    for d in range(sa_intv):
+        rb = _b_rank(idx, bs)
+        seg_b.append(rb)
+        seg_l.append(_b_rank(idx, es) - rb)
+        seg_d.append(torch.full((bs.shape[1],), d, dtype=torch.int64,
+                                device=dev))
+        if d + 1 < sa_intv:
+            w = 4 * bs.shape[1]  # child = parent * 4 + symbol
+            bs = _lf_all4(idx, bs).reshape(Q, w)
+            es = _lf_all4(idx, es).reshape(Q, w)
+    segb = torch.cat(seg_b, dim=1).reshape(-1)
+    segl = torch.cat(seg_l, dim=1).reshape(-1)
+    segd = torch.cat(seg_d).repeat(Q)
+    total = int(segl.sum())
+    starts = torch.cumsum(segl, dim=0) - segl  # exclusive prefix
+    # slot r of segment s reads sa_samp[segb[s] + (r - starts[s])]
+    base = torch.repeat_interleave(segb - starts, segl, output_size=total)
+    depth = torch.repeat_interleave(segd, segl, output_size=total)
+    r = torch.arange(total, dtype=torch.int64, device=dev)
+    return idx.sa_samp[base + r] + depth
+
+
+def bfs_locate_device(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
+                      sa_intv: int) -> torch.Tensor:
+    """Positions (int64, grouped query-major) of the row ranges
+    [beg, end) by the range BFS: kiss_tpu's ``bfs_locate_device`` without
+    its capacity padding (its ``pos[:total]``)."""
+    kernels.require(beg, "beg", torch.int64, 1)
+    kernels.require(end, "end", torch.int64, 1)
+    if beg.shape != end.shape:
+        raise ValueError("beg and end differ in shape")
+    return _bfs_emit(idx, beg, end, sa_intv)
+
+
+def batch_bfs_stats_device(idx: FMArrays, beg: torch.Tensor,
+                           end: torch.Tensor, sa_intv: int):
+    """(total occurrences, location checksum) like
+    :func:`batch_locate_stats_device`, but via the range BFS -- the
+    locate path for indexes whose SA order is not known fully sorted.
+    The checksum is one int64 sum of the positions, the integer kiss_tpu
+    assembles as sum(lo) + (sum(hi) << 16)."""
+    pos = bfs_locate_device(idx, beg, end, sa_intv)
+    return pos.shape[0], int(pos.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -766,12 +857,26 @@ class FMIndex:
         )
         return out.cpu().numpy().astype(np.uint32)
 
+    def _bfs_positions(self, beg, end) -> np.ndarray:
+        """Positions (uint32) for per-query ranges via the range BFS
+        (grouped query-major; exact on any k-ordered source SA)."""
+        dev = _device_of(self.arrays)
+        beg = np.atleast_1d(np.asarray(beg)).astype(np.int64)
+        end = np.atleast_1d(np.asarray(end)).astype(np.int64)
+        pos = bfs_locate_device(
+            self.arrays, torch.from_numpy(beg).to(dev),
+            torch.from_numpy(end).to(dev), self.sa_intv,
+        )
+        return pos.cpu().numpy().astype(np.uint32)
+
     def get_offsets(self, beg: int, end: int) -> np.ndarray:
-        """Positions for one row range (reference: fm_index.hpp:453-501),
-        by the per-row walk. An index not known to come from a full sort
-        needs the range BFS, which is not yet ported: that raises."""
+        """Positions for one row range (reference: fm_index.hpp:453-501).
+        Same result set as the FMTree BFS: computed by the per-row walk
+        when the index is known built from a fully sorted SA, and by the
+        vectorized BFS itself otherwise (loaded archives, bounded
+        sort_len builds)."""
         if self._routes_to_bfs():
-            raise _bfs_not_ported()
+            return self._bfs_positions(beg, end)
         return self.locate_rows(np.arange(beg, end, dtype=np.int64))
 
     def get_offsets_traditional(self, beg: int, end: int) -> np.ndarray:
@@ -794,11 +899,13 @@ class FMIndex:
         where positions[starts[q]:starts[q+1]] belong to query q
         (reference: include/command/fmindex_query.hpp:66-99).
         """
-        if self._routes_to_bfs():
-            raise _bfs_not_ported()
         beg, end, _ = self.get_ranges(queries)
         lens = (end - beg).astype(np.int64)
         rows, starts = _ragged_rows(beg, lens)
+        if self._routes_to_bfs():
+            # BFS emission is grouped query-major, so the same starts
+            # partition applies
+            return lens, self._bfs_positions(beg, end), starts
         return lens, self.locate_rows(rows), starts
 
     def batch_query_stats(self, queries: np.ndarray) -> tuple[int, int]:
@@ -809,10 +916,10 @@ class FMIndex:
         queries = np.ascontiguousarray(queries, dtype=np.int8)
         if queries.size == 0:
             return 0, 0
-        if self._routes_to_bfs():
-            raise _bfs_not_ported()
         beg, end, _ = self._ranges(queries)
-        return batch_locate_stats_device(self.arrays, beg, end, self.sa_intv)
+        stats = (batch_bfs_stats_device if self._routes_to_bfs()
+                 else batch_locate_stats_device)
+        return stats(self.arrays, beg, end, self.sa_intv)
 
     # -- serialization ----------------------------------------------------
 

@@ -5,6 +5,7 @@ device rule and the commands and flags that are not yet ported."""
 
 import json
 import logging
+import os
 import re
 import shutil
 import struct
@@ -126,31 +127,64 @@ def test_in_core_capacity(monkeypatch):
 
 
 def test_sidecar_routes_locate(tmp_path, caplog):
-    """Without a valid full_sa sidecar the locate would need the
-    (unported) range BFS and raises; --assume-full-sa routes it through
-    the per-row walk."""
-    text = oracle.random_dna(3_000, seed=4)
-    fa = str(tmp_path / "s.fa")
+    """Without a valid full_sa sidecar the locate goes through the range
+    BFS, with one, or with --assume-full-sa, through the per-row walk:
+    the log lines, occurrences and checksum are kiss_tpu.cli's either
+    way, for a stale sidecar, a lost one and a ``-k 32`` build."""
+    text = oracle.repeat_heavy_dna(3_000, unit=45, seed=4)
+    jfa, fa = str(tmp_path / "j.fa"), str(tmp_path / "s.fa")
     fasta.write_fasta(fa, [fasta.FastaRecord("s", text)])
-    cpu = ["--device", "cpu"]
-    assert tcli.main(["fmindex_build", *cpu, fa]) == 0
-    pat = codec.to_string(text[40:52])
-    q = ["fmindex_query", "-q", pat, *cpu, fa]
-    assert tcli.main(q) == 0
-    with open(fa + ".fmi", "r+b") as f:  # content change -> stale sidecar
-        f.seek(30)
-        byte = f.read(1)
-        f.seek(30)
-        f.write(bytes([byte[0] ^ 1]))
-    with pytest.raises(NotImplementedError, match="BFS"):
-        tcli.main(q)
-    assert tcli.main(["fmindex_build", *cpu, fa]) == 0
-    (tmp_path / "s.fa.fmi.meta").unlink()
-    with pytest.raises(NotImplementedError, match="BFS"):
-        tcli.main(q)
+    shutil.copy(fa, jfa)
+    rng = np.random.default_rng(2)
+    qlen, nq = 12, 120
+    pats = [codec.to_string(text[p : p + qlen])
+            for p in rng.integers(0, len(text) - qlen, nq)]
+    bpath = str(tmp_path / "patterns.bin")
+    with open(bpath, "wb") as f:
+        f.write(struct.pack("<II", qlen, nq))
+        f.write("".join(pats).encode())
+    pat = pats[0]
+    hits = oracle.search_all(text, codec.to_istring(pat))
+
+    def both(argv):
+        want = _lines(jcli.main, "kiss_tpu", argv + [jfa], caplog)
+        got = _lines(tcli.main, "kiss_tpu_torch",
+                     argv + ["--device", "cpu", fa], caplog)
+        assert got == want
+        return got
+
+    def queries_agree():
+        lines = both(["fmindex_query", "-q", pat, "-n", "1000"])
+        assert lines[0] == f"query = {pat} found {len(hits)} times"
+        shown = sorted(int(m.split(" position is ")[1].split(",")[0])
+                       for m in lines[1:])
+        assert shown == hits.tolist()
+        lines = both(["fmindex_query", "-b", bpath])
+        assert lines[2].startswith("number of matched locations: ")
+        assert lines[3].startswith("location checksum: ")
+        return lines[2:]
+
+    both(["fmindex_build"])
+    full = queries_agree()  # valid sidecar: the per-row walk
+    for path in (jfa, fa):  # content change -> stale sidecar -> BFS
+        with open(path + ".fmi", "r+b") as f:
+            f.seek(30)
+            byte = f.read(1)
+            f.seek(30)
+            f.write(bytes([byte[0] ^ 1]))
+    assert tcli.main(["fmindex_query", "-q", pat, "--device", "cpu", fa]) == 0
+    both(["fmindex_build"])
+    for path in (jfa, fa):  # sidecar lost -> BFS, same answers
+        os.unlink(path + ".fmi.meta")
+    assert queries_agree() == full
     lines = _lines(tcli.main, "kiss_tpu_torch",
-                   q[:1] + ["--assume-full-sa"] + q[1:], caplog)
-    assert lines[0] == f"query = {pat} found 1 times"
+                   ["fmindex_query", "--assume-full-sa", "-q", pat,
+                    "--device", "cpu", fa], caplog)
+    assert lines[0] == f"query = {pat} found {len(hits)} times"
+    both(["fmindex_build", "-k", "32"])  # 32 >= sa_intv - 1 + qlen: exact
+    with open(fa + ".fmi.meta") as f:
+        assert json.load(f)["full_sa"] is False
+    assert queries_agree() == full
 
 
 def test_verbose_stage_log_and_version(tmp_path, caplog, capsys):

@@ -203,23 +203,33 @@ def test_golden_query_stats(name):
 
 
 def test_bfs_routes_raise():
-    """Locate that would need the (unported) range BFS raises instead of
-    returning positions from the per-row walk."""
+    """Locate on an index not known to come from a full sort goes through
+    the range BFS and answers (it raised before the BFS was ported); bad
+    ranges handed to the BFS entry points still raise."""
     data = np.load(os.path.join(GOLDEN, "repeat3k.npz"))
+    text = data["text"]
     loaded = tfm.FMIndex(sa_intv=4, device="cpu").load(
         io.BytesIO(data["fmi"].tobytes())
     )
-    assert not loaded.full_sa
-    q = data["text"][100:111]
-    beg, end, _ = loaded.get_range(q)  # counting still works
-    assert end - beg == len(oracle.search_all(data["text"], q))
-    with pytest.raises(NotImplementedError, match="BFS"):
-        loaded.get_offsets(beg, end)
-    with pytest.raises(NotImplementedError, match="BFS"):
-        loaded.batch_query_stats(q[None, :])
-    bounded = tfm.FMIndex(sa_intv=4, device="cpu").build(
-        data["text"], sort_len=32
-    )
+    assert not loaded.full_sa and loaded._routes_to_bfs()
+    q = text[100:111]
+    hits = oracle.search_all(text, q)
+    beg, end, _ = loaded.get_range(q)
+    assert end - beg == len(hits)
+    np.testing.assert_array_equal(np.sort(loaded.get_offsets(beg, end)), hits)
+    assert loaded.batch_query_stats(q[None, :]) == (len(hits), int(hits.sum()))
+    bounded = tfm.FMIndex(sa_intv=4, device="cpu").build(text, sort_len=32)
     assert not bounded.full_sa
-    with pytest.raises(NotImplementedError, match="BFS"):
-        bounded.batch_query(q[None, :])
+    lens, pos, starts = bounded.batch_query(q[None, :])
+    assert lens.tolist() == [len(hits)] and starts.tolist() == [0, len(hits)]
+    np.testing.assert_array_equal(np.sort(pos), hits)
+    # a fully sorted build keeps the per-row walk
+    full = tfm.FMIndex(sa_intv=4, device="cpu").build(text)
+    assert full.full_sa and not full._routes_to_bfs()
+    with pytest.raises(TypeError, match="beg"):
+        tfm.bfs_locate_device(loaded.arrays,
+                              torch.tensor([0], dtype=torch.int32),
+                              torch.tensor([1]), 4)
+    with pytest.raises(ValueError, match="shape"):
+        tfm.batch_bfs_stats_device(loaded.arrays, torch.tensor([0, 1]),
+                                   torch.tensor([1]), 4)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1 ``radix_sort_words``, K2 ``fm_backward_search``
 (``get_range_packed_device``), K3 ``fm_locate_rows`` / ``fm_locate_stats``
-(``locate_rows_device`` / ``batch_locate_stats_device``). All outputs
-are integers, so every comparison is exact (tolerance 0).
+(``locate_rows_device`` / ``batch_locate_stats_device``), and the seven
+probes P1-P7 of ``kiss_tpu_torch.experiments``. All outputs are integers,
+so every comparison is exact (tolerance 0).
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false. On a machine with a
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from kiss_tpu_torch import kernels
+from kiss_tpu_torch.experiments import micro_copy, micro_kernels
 from kiss_tpu_torch.models import fm_index as fm
 from kiss_tpu_torch.ops import pack
 from kiss_tpu_torch.ops.radix_sort import (
@@ -128,3 +131,99 @@ def test_sa_on_card_equals_cpu(cuda):
             k_ordered_suffix_array(text, k, device="cuda"),
             k_ordered_suffix_array(text, k, device="cpu"),
         )
+
+
+# ---------------------------------------------------------------- P1-P7
+
+
+def _probe_pair(cuda, R, seed, high=2**32):
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, high, (R, 128), dtype=np.uint64).astype(np.uint32)
+    v = rng.integers(-2**31, 2**31, (R, 128), dtype=np.int64).astype(np.int32)
+    return (torch.from_numpy(k.view(np.int32)).to(cuda),
+            torch.from_numpy(v).to(cuda))
+
+
+def _counted(name, fn, *args):
+    """fn(*args) on the card, synchronized, having launched ``name`` once."""
+    before = kernels.LAUNCHES[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("R,rows", [(32, 8), (4096, 2048), (5000, 512)])
+def test_stream_copy_matches_plain(cuda, R, rows):
+    x, _ = _probe_pair(cuda, R, R)
+    got = _counted("stream_copy", micro_kernels.stream_copy, x, rows)
+    assert torch.equal(got, micro_kernels.stream_copy_plain(x, rows))
+
+
+@pytest.mark.parametrize(
+    "R,rows,d,stage_d",
+    [(64, 8, 1, 1), (64, 8, 512, 512), (4096, 2048, 128, 128),
+     (4096, 2048, 1 << 16, 1 << 16), (96, 24, 4, 2)],
+)
+@pytest.mark.parametrize("high", [2**32, 4])
+def test_one_stage_matches_plain(cuda, R, rows, d, stage_d, high):
+    k, v = _probe_pair(cuda, R, d, high)
+    got = _counted("one_stage", micro_kernels.one_stage, k, v, rows, d,
+                   stage_d)
+    want = micro_kernels.one_stage_plain(k, v, rows, d, stage_d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("R,rows", [(16, 1), (64, 16), (512, 64), (1024, 256),
+                                    (4096, 2048)])
+@pytest.mark.parametrize("high", [2**32, 4])
+def test_tile_sort_matches_plain(cuda, R, rows, high):
+    k, v = _probe_pair(cuda, R, rows, high)
+    got = _counted("tile_sort", micro_kernels.tile_sort, k, v, rows)
+    want = micro_kernels.tile_sort_plain(k, v, rows)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("entries", [1, 1000, 1 << 15, 58_112, 58_113,
+                                     1 << 16])
+def test_kernel_gather_matches_plain(cuda, entries):
+    """Tables on both sides of the shared-memory limit (58,112 entries)."""
+    table, _ = _probe_pair(cuda, -(-entries // 128), entries)
+    table = table.reshape(-1)[:entries]
+    g = torch.Generator(device=cuda).manual_seed(entries)
+    idx = torch.randint(0, entries, (3000, 128), dtype=torch.int32,
+                        device=cuda, generator=g)
+    got = _counted("kernel_gather", micro_kernels.kernel_gather, table, idx,
+                   512)
+    assert torch.equal(got, micro_kernels.kernel_gather_plain(table, idx, 512))
+
+
+@pytest.mark.parametrize("entries", [1000, 1 << 16])
+def test_kernel_gather_clamps_bad_indices(cuda, entries):
+    """No index makes the kernel read outside the table: one past the end,
+    or negative (a large unsigned number), reads the last entry."""
+    table, _ = _probe_pair(cuda, -(-entries // 128), 9)
+    table = table.reshape(-1)[:entries]
+    idx = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    idx[0, :4] = torch.tensor([entries, -1, 2**31 - 1, entries - 1],
+                              dtype=torch.int32)
+    got = _counted("kernel_gather", micro_kernels.kernel_gather, table, idx, 8)
+    assert got[0, :4].tolist() == [int(table[-1])] * 4
+    assert bool((got.reshape(-1)[4:] == table[0]).all())
+
+
+@pytest.mark.parametrize("R,rows", [(32, 8), (4096, 2048), (5000, 512)])
+def test_copy_grid_and_heavy_match_plain(cuda, R, rows):
+    x, _ = _probe_pair(cuda, R, R + 1)
+    got = _counted("copy_grid", micro_copy.copy_grid, x, rows)
+    assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
+    got = _counted("run_heavy", micro_copy.run_heavy, x, rows)
+    assert torch.equal(got, micro_copy.run_heavy_plain(x, rows))
+
+
+@pytest.mark.parametrize("R,rows", [(32, 8), (4096, 2048), (4096, 1),
+                                    (3000, 24)])
+def test_copy_2d_matches_plain(cuda, R, rows):
+    x, _ = _probe_pair(cuda, R, R + 2)
+    got = _counted("copy_2d", micro_copy.copy_2d, x, rows)
+    assert torch.equal(got, micro_copy.copy_2d_plain(x, rows))

@@ -31,6 +31,8 @@ def test_imports_without_jax():
         "import kiss_tpu_torch.models.fm_index, kiss_tpu_torch.ops.pack\n"
         "import kiss_tpu_torch.ops.suffix_sort, kiss_tpu_torch.ops.radix_sort\n"
         "import kiss_tpu_torch.utils.native, kiss_tpu_torch.utils.timing\n"
+        "import kiss_tpu_torch.experiments.micro_kernels\n"
+        "import kiss_tpu_torch.experiments.micro_copy\n"
         "bad = [m for m in sys.modules if m == 'kiss_tpu' or "
         "m.startswith('kiss_tpu.')]\n"
         "assert not bad, bad\n"
