@@ -19,9 +19,9 @@ exits non-zero and prints no result line):
      reproduced on the card, and the ``.fmi`` archives the reference
      binary wrote loaded and queried through the range BFS;
   5. the main path through ``kiss_tpu_torch.cli.main`` at full width: a
-     48,800,648-character synthetic genome (bench.synth_genome) through
-     ``suffix_sort -k 256``, ``fmindex_build``, ``fmindex_query -b`` with
-     1,000,000 patterns of length 25 (bench.sample_patterns) and
+     48,800,648-character synthetic genome (utils.synth.synth_genome)
+     through ``suffix_sort -k 256``, ``fmindex_build``, ``fmindex_query
+     -b`` with 1,000,000 patterns of length 25 (sample_patterns) and
      ``fmindex_query -q``, with every kernel's launch counter reset just
      before and read just after; the counts and checksum are held
      against an independent 25-mer oracle computed on the card;
@@ -45,7 +45,9 @@ exits non-zero and prints no result line):
      times and bound, and as the last line ``{"ok": true, "device":
      {...}}``.
 
-It imports nothing of JAX: bench.py's module level is numpy only.
+It imports the standard library, numpy, torch and kiss_tpu_torch only:
+the synthetic genome and the patterns come from the port's own
+``kiss_tpu_torch/utils/synth.py``.
 """
 
 import json
@@ -65,6 +67,7 @@ SMALL_N = (1 << 22) + 6  # text length whose suffix count is 2**22 + 7
 CLI_CHUNK = 100_000  # queries per batch_query_stats call of ``-b``
 N_PROBE = 48_758_784  # elements per probe operand: 186 tiles of 2048 x 128
 PROBE_ROWS = 2048
+PROBE_REPS = 50  # launches per timing of a probe kernel
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet). The sheet gives no
 # rate for 32-bit integer arithmetic outside the tensor cores; Hopper runs
@@ -178,7 +181,7 @@ def seed_sort_words(text_dev):
     return words
 
 
-def phase_kernels(torch, np, bench, err):
+def phase_kernels(torch, np, err):
     """Each kernel against its plain version on edge cases."""
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
@@ -186,10 +189,11 @@ def phase_kernels(torch, np, bench, err):
         radix_sort_words,
         radix_sort_words_plain,
     )
+    from kiss_tpu_torch.utils.synth import sample_patterns, synth_genome
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
-    text = bench.synth_genome(SMALL_N, seed=3)
+    text = synth_genome(SMALL_N, seed=3)
     N = SMALL_N + 1
     w5 = seed_sort_words(torch.from_numpy(text).to(dev))
 
@@ -221,7 +225,7 @@ def phase_kernels(torch, np, bench, err):
     }
     nq = 1 << 18
     for qlen in (25, 12):
-        pats = bench.sample_patterns(text, nq, qlen, seed=qlen)
+        pats = sample_patterns(text, nq, qlen, seed=qlen)
         qw = torch.from_numpy(
             pack.np_pack_queries_2bit(pats).view(np.int32)
         ).to(dev)
@@ -386,8 +390,11 @@ def phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds):
     gb = n * 4 / 1e9
     notes = []
 
-    def run(name, kernel_fn, plain_fn, library_fn=None):
-        """Compare, then time; returns (kernel, plain, library) ms."""
+    def run(name, kernel_fn, plain_fn, library_fn=None, plain_reps=2):
+        """Compare, then time; returns (kernel, plain, library) ms. The
+        plain version of a streaming copy is itself one streaming call
+        and is timed as the kernel is (``plain_reps=PROBE_REPS``); the
+        others take many milliseconds, and 2 runs are enough."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
@@ -395,8 +402,11 @@ def phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds):
         for g, w in zip(got, want):
             err[name] = max(err[name], exact(g, w))
         del got, want
-        return (cuda_ms(kernel_fn, 5), cuda_ms(plain_fn, 2),
-                cuda_ms(library_fn, 5) if library_fn else None)
+        # 50 launches in a row: the host's preparation of the first one
+        # (tens of microseconds) is a tenth of a streaming probe's time
+        return (cuda_ms(kernel_fn, PROBE_REPS),
+                cuda_ms(plain_fn, plain_reps),
+                cuda_ms(library_fn, PROBE_REPS) if library_fn else None)
 
     def keep(name, times, bytes_moved, int_ops):
         ms[name], plain_ms[name], library_ms[name] = times
@@ -406,7 +416,8 @@ def phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds):
         return " / ".join("none" if t is None else f"{t:.3f}" for t in times)
 
     t = run("stream_copy", lambda: mk.stream_copy(k, rows),
-            lambda: mk.stream_copy_plain(k, rows), lambda: k + 1)
+            lambda: mk.stream_copy_plain(k, rows), lambda: k + 1,
+            plain_reps=PROBE_REPS)
     keep("stream_copy", t, 8 * n, n)
     notes.append(f"stream_copy {fmt(t)} -> {2 * gb / t[0] * 1e3:.0f} GB/s "
                  f"(x + 1: {2 * gb / t[2] * 1e3:.0f} GB/s)")
@@ -448,12 +459,14 @@ def phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds):
         err["copy_grid"] = max(err["copy_grid"],
                                exact(mc.copy_grid(k, r), k))
     t = run("copy_grid", lambda: mc.copy_grid(k, rows),
-            lambda: mc.copy_grid_plain(k, rows), k.clone)
+            lambda: mc.copy_grid_plain(k, rows), k.clone,
+            plain_reps=PROBE_REPS)
     keep("copy_grid", t, 8 * n, 0)
     notes.append(f"copy_grid {fmt(t)} -> {2 * gb / t[0] * 1e3:.0f} GB/s "
                  f"(clone: {2 * gb / t[2] * 1e3:.0f} GB/s)")
     t = run("copy_2d", lambda: mc.copy_2d(k, rows),
-            lambda: mc.copy_2d_plain(k, rows), k.clone)
+            lambda: mc.copy_2d_plain(k, rows), k.clone,
+            plain_reps=PROBE_REPS)
     keep("copy_2d", t, 8 * n, 0)
     notes.append(f"copy_2d {fmt(t)} -> {2 * gb / t[0] * 1e3:.0f} GB/s")
     t = run("run_heavy", lambda: mc.run_heavy(k, rows),
@@ -474,7 +487,6 @@ def main() -> int:
     import numpy as np
 
     sys.path.insert(0, ROOT)
-    import bench
     from kiss_tpu_torch import cli, kernels
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
@@ -489,6 +501,7 @@ def main() -> int:
         k_ordered_suffix_array,
     )
     from kiss_tpu_torch.utils import codec, fasta
+    from kiss_tpu_torch.utils.synth import sample_patterns, synth_genome
 
     # ---- 1. device
     smi = subprocess.run(
@@ -509,15 +522,15 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     err = {name: 0 for name in KERNELS}
-    phase_kernels(torch, np, bench, err)
+    phase_kernels(torch, np, err)
 
     # ---- 4. goldens
     phase_goldens(torch, np)
 
     # ---- 5. the main path at full width
     dev = torch.device("cuda")
-    text = bench.synth_genome(N_TEXT)
-    pats = bench.sample_patterns(text, N_QUERIES, QLEN)
+    text = synth_genome(N_TEXT)
+    pats = sample_patterns(text, N_QUERIES, QLEN)
     tmpdir = tempfile.TemporaryDirectory(prefix="kiss_chip_smoke_")
     tmp = tmpdir.name
     fa = os.path.join(tmp, "genome.fa")

@@ -17,11 +17,32 @@
 //   traffic in the steps it keeps on chip and by device memory in the steps
 //   whose partners are further apart than a block's shared memory holds.
 //
-// What the simple design does about it:
-//   - the four elementwise probes share one kernel template: a block owns
-//     one tile of `rows * 128` elements (the TPU probes' block, kept as the
-//     work of one thread block so the probes can still sweep it) and moves
-//     it 16 bytes a thread, neighbouring threads on neighbouring addresses;
+// What the design does about it:
+//   - the three elementwise probes (streaming copy, grid copy, multiply-add
+//     chain) share one kernel template. A block owns a whole tile of
+//     `rows * 128` elements (the TPU probes' block, kept as the work of one
+//     thread block so the probes can still sweep it; more tiles than a grid
+//     holds are walked b, b + gridDim.x, ...). A memory-bound copy runs at
+//     the rate of the bytes it keeps in flight, and with large tiles there
+//     are few blocks, so what one block keeps in flight decides:
+//       batched loads -- every thread starts four 16-byte loads before its
+//         first store: threads x 64 bytes in flight a block. All three
+//         probes run so while there is at least a tile for every SM, and
+//         the two that compute always: their threads touch every byte
+//         anyway, and on the card a trip through shared memory with a
+//         barrier per stage cost more than its deeper queue of loads gained;
+//       ring -- the grid copy with fewer tiles than SMs, where a block
+//         alone has to keep an SM's share of the card's traffic in flight.
+//         The block is one warp and no thread touches the data. Its elected
+//         thread moves the tile through a ring of 6 stages of 16 KB in
+//         shared memory: an asynchronous bulk copy (cp.async.bulk, the 1-D
+//         form that needs no tensor map) from device memory for every stage
+//         of the ring, each completing on its stage's mbarrier, and an
+//         asynchronous bulk copy back to device memory from every stage
+//         that has arrived. A stage is refilled as soon as the store started
+//         before the newest one has read its stage
+//         (cp.async.bulk.wait_group.read 1), so five stages of loads stay
+//         in flight whatever `rows` is;
 //   - the 2-D copy spreads each row of the [tiles, rows * 128] view over
 //     many small blocks (blockIdx.y is the row), the other launch geometry;
 //   - the gather stages the table in dynamic shared memory when it fits a
@@ -70,39 +91,278 @@ struct MulAddChain {
   }
 };
 
-// o[i] = op(x[i]) over 16-byte vectors; block b owns the tiles b,
-// b + gridDim.x, ... of tile_vec vectors each (the last tile may be short)
+// ---- asynchronous bulk copies and their barriers (PTX, sm_90)
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(arrivals)
+               : "memory");
+}
+
+// one arrival that also announces `bytes` of bulk copies to wait for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// nanoseconds of the card's own clock
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Spin until the barrier's phase of the given parity has completed. A
+// barrier that does not complete within kWaitLimitNs (a byte count or a
+// parity gone wrong) traps: the launch then ends in an error, not a hang.
+constexpr unsigned long long kWaitLimitNs = 10ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  unsigned long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const unsigned long long now = global_ns();
+    if (t0 == 0) t0 = now;
+    if (now - t0 > kWaitLimitNs) __trap();
+  }
+}
+
+// device memory -> shared memory, completing `bytes` on the barrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared memory -> device memory, as one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+// until all but the newest kPending bulk groups have read their source
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// ---- the elementwise template: o[i] = op(x[i]) over 16-byte vectors
+
 template <class Op>
-__global__ void tile_map_kernel(const uint4* __restrict__ x,
-                                uint4* __restrict__ o, long long nvec,
-                                long long tile_vec, Op op) {
+__device__ __forceinline__ uint4 map4(uint4 a, const Op& op) {
+  return make_uint4(op(a.x), op(a.y), op(a.z), op(a.w));
+}
+
+// The batched loads: the block walks its tile in batches of blockDim.x *
+// kBatchLoads vectors, and a thread starts all the loads of a batch before
+// its first store, so a block keeps threads x 64 bytes of loads in flight.
+constexpr int kBatchLoads = 4;
+
+template <class Op>
+__global__ void tile_batch_kernel(const uint4* __restrict__ x,
+                                  uint4* __restrict__ o, long long nvec,
+                                  long long tile_vec, Op op) {
   for (long long lo = blockIdx.x * tile_vec; lo < nvec;
        lo += gridDim.x * tile_vec) {
     const long long hi = lo + tile_vec < nvec ? lo + tile_vec : nvec;
-#pragma unroll 4
-    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-      uint4 a = x[i];
-      a.x = op(a.x);
-      a.y = op(a.y);
-      a.z = op(a.z);
-      a.w = op(a.w);
-      o[i] = a;
+    for (long long base = lo + threadIdx.x; base < hi;
+         base += (long long)blockDim.x * kBatchLoads) {
+      uint4 a[kBatchLoads];
+#pragma unroll
+      for (int u = 0; u < kBatchLoads; ++u) {
+        const long long i = base + (long long)u * blockDim.x;
+        if (i < hi) a[u] = x[i];
+      }
+#pragma unroll
+      for (int u = 0; u < kBatchLoads; ++u) {
+        const long long i = base + (long long)u * blockDim.x;
+        if (i < hi) o[i] = map4(a[u], op);
+      }
     }
   }
 }
 
+// The ring, identity copy only: block b copies tile b (a block per tile,
+// launched as one warp whose thread 0 is the elected thread and the only
+// one that works) through kRingStages buffers of kStageVec vectors in
+// dynamic shared memory, one mbarrier each. The tile is cut into chunks of
+// a stage (the last may be short, and a tile smaller than a stage is one
+// chunk). Chunk c lives in stage c % kRingStages and completes phase
+// (c / kRingStages) & 1 of that stage's barrier. The first kRingStages loads
+// are started up front; then, for every chunk in order: wait for its load,
+// store it, and refill the stage of the chunk before it with the next chunk
+// not yet loaded, once that chunk's store has read the stage.
+constexpr int kStageVec = 1024;  // 16 KB a stage
+constexpr int kRingStages = 6;   // 96 KB a block: two blocks fit one SM
+constexpr uint32_t kStageBytes = kStageVec * 16u;
+constexpr int kRingBytes = kRingStages * (int)kStageBytes;
+
+__global__ void tile_ring_copy_kernel(const uint4* __restrict__ x,
+                                      uint4* __restrict__ o, long long nvec,
+                                      long long tile_vec) {
+  extern __shared__ __align__(128) uint4 ring[];
+  __shared__ __align__(8) uint64_t full[kRingStages];
+  if (threadIdx.x != 0) return;
+  const uint32_t ring0 = shared_addr(ring);
+  const uint32_t full0 = shared_addr(full);
+  for (int s = 0; s < kRingStages; ++s) mbar_init(full0 + 8u * s, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+
+  const long long lo = blockIdx.x * tile_vec;
+  const long long tile_len = tile_vec < nvec - lo ? tile_vec : nvec - lo;
+  const long long chunks = (tile_len + kStageVec - 1) / kStageVec;
+  x += lo;
+  o += lo;
+  const auto chunk_bytes = [&](long long c) {
+    const long long left = tile_len - c * kStageVec;
+    return (uint32_t)(left < kStageVec ? left : kStageVec) * 16u;
+  };
+  const auto load = [&](long long c) {
+    const uint32_t s = (uint32_t)(c % kRingStages);
+    mbar_expect_tx(full0 + 8u * s, chunk_bytes(c));
+    bulk_load(ring0 + s * kStageBytes, x + c * kStageVec, chunk_bytes(c),
+              full0 + 8u * s);
+  };
+
+  long long loaded = 0;
+  for (; loaded < chunks && loaded < kRingStages; ++loaded) load(loaded);
+  for (long long c = 0; c < chunks; ++c) {
+    const uint32_t s = (uint32_t)(c % kRingStages);
+    mbar_wait(full0 + 8u * s, (uint32_t)(c / kRingStages) & 1u);
+    bulk_store(o + c * kStageVec, ring0 + s * kStageBytes, chunk_bytes(c));
+    if (c > 0 && loaded < chunks) {
+      // the store of chunk c - 1 has read its stage, which is the one that
+      // chunk `loaded` = c - 1 + kRingStages belongs in
+      bulk_wait_read<1>();
+      load(loaded++);
+    }
+  }
+  // shared memory must outlive the last stores' reads of it
+  bulk_wait_read<0>();
+}
+
+// What a launch needs to know of the current device, asked once a device:
+// its number of SMs, and whether the ring kernel has been given its shared
+// memory there (above 48 KB a launch needs the attribute; and as much of
+// the SM's L1 as shared memory as it takes to hold two rings).
+struct DeviceFacts {
+  int sms = 0;
+  bool ring_ready = false;
+};
+
+constexpr int kMaxDevices = 64;
+
+cudaError_t device_facts(DeviceFacts** facts) {
+  static DeviceFacts known[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceFacts& d = known[dev];
+  if (d.sms == 0) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (sms < 1) return cudaErrorInvalidDevice;
+    d.sms = sms;
+  }
+  *facts = &d;
+  return cudaSuccess;
+}
+
+cudaError_t ready_ring(DeviceFacts& d) {
+  if (d.ring_ready) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_ring_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kRingBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(tile_ring_copy_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  d.ring_ready = err == cudaSuccess;
+  return err;
+}
+
+// What the card measured fastest, by what a launch can observe. Batched
+// loads where the threads have work to do on the data anyway: on 1024
+// threads for the one add, on 512 for the multiply-add chain, whose 61
+// registers a thread let two such blocks share an SM where one block of
+// 1024 leaves the SM idle between two tiles. For the identity copy the same
+// batched loads while there is at least a tile for every SM, and the ring
+// when there are fewer: then a block alone has to keep an SM's share of the
+// card's bytes in flight, and the ring holds more of them than 1024 threads'
+// registers do.
+template <class Op>
+constexpr int kBatchThreads = 1024;
+template <>
+constexpr int kBatchThreads<MulAddChain> = 512;
+
+template <class Op>
+constexpr bool kRingWhenFewTiles = false;
+template <>
+constexpr bool kRingWhenFewTiles<Identity> = true;
+
+// threads rounded up to whole warps that `work` items keep busy
+int warps_for(long long work, int threads) {
+  return work < threads ? (int)((work + 31) / 32) * 32 : threads;
+}
+
+// P1, P5 and P7: a block per tile of tile_vec vectors (the last may be
+// short); more tiles than a grid holds are walked b, b + gridDim.x, ...
 template <class Op>
 int launch_tile_map(const void* x, void* o, long long nvec, long long tile_vec,
                     Op op, void* stream) {
-  if (nvec > 0) {
-    long long tiles = (nvec + tile_vec - 1) / tile_vec;
-    if (tiles > kMaxGrid) tiles = kMaxGrid;
-    int threads = kMapThreads;
-    if (tile_vec < threads) threads = (int)((tile_vec + 31) / 32) * 32;
-    tile_map_kernel<Op><<<(unsigned int)tiles, threads, 0,
-                          (cudaStream_t)stream>>>(
-        (const uint4*)x, (uint4*)o, nvec, tile_vec, op);
+  if (nvec <= 0) return (int)cudaGetLastError();
+  if (tile_vec < 1) return (int)cudaErrorInvalidValue;
+  if (tile_vec > nvec) tile_vec = nvec;
+  const long long tiles = (nvec + tile_vec - 1) / tile_vec;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const uint4* xv = (const uint4*)x;
+  uint4* ov = (uint4*)o;
+  if (kRingWhenFewTiles<Op>) {
+    DeviceFacts* d = nullptr;
+    cudaError_t err = device_facts(&d);
+    const bool ring = err == cudaSuccess && tiles < d->sms;
+    if (ring) err = ready_ring(*d);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // reported here, not by the next launch
+      return (int)err;
+    }
+    if (ring) {
+      tile_ring_copy_kernel<<<(unsigned int)tiles, 32, kRingBytes, s>>>(
+          xv, ov, nvec, tile_vec);
+      return (int)cudaGetLastError();
+    }
   }
+  const long long grid = tiles < kMaxGrid ? tiles : kMaxGrid;
+  const long long batches = (tile_vec + kBatchLoads - 1) / kBatchLoads;
+  tile_batch_kernel<Op>
+      <<<(unsigned int)grid, warps_for(batches, kBatchThreads<Op>), 0, s>>>(
+          xv, ov, nvec, tile_vec, op);
   return (int)cudaGetLastError();
 }
 
@@ -276,20 +536,9 @@ __global__ void bitonic_local_kernel(const uint32_t* k, const int* v,
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      sms < 1) {
-    sms = 1;
-  }
-  return sms;
-}
-
 }  // namespace
 
-// P1: o = x + 1 (mod 2^32) over nvec 16-byte vectors, tile_vec a block
+// P1: o = x + 1 (mod 2^32) over nvec 16-byte vectors in tiles of tile_vec
 extern "C" int kt_probe_stream_copy(const void* x, void* o, long long nvec,
                                     long long tile_vec, void* stream) {
   return launch_tile_map(x, o, nvec, tile_vec, AddOne{}, stream);
@@ -305,7 +554,8 @@ extern "C" int kt_probe_copy_grid(const void* x, void* o, long long nvec,
 extern "C" int kt_probe_heavy(const void* x, void* o, long long nvec,
                               long long tile_vec, unsigned int mul,
                               unsigned int add, void* stream) {
-  return launch_tile_map(x, o, nvec, tile_vec, MulAddChain{mul, add}, stream);
+  return launch_tile_map(x, o, nvec, tile_vec, MulAddChain{mul, add},
+                                 stream);
 }
 
 // P6: o = x for a [rows2d, row_vec] array of 16-byte vectors (rows2d <= 65535)
@@ -337,7 +587,10 @@ extern "C" int kt_probe_gather(const void* x, int n_table, const void* idx,
         gather_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    const long long sms = sm_count();
+    DeviceFacts* d = nullptr;
+    const cudaError_t asked = device_facts(&d);
+    if (asked != cudaSuccess) return (int)asked;
+    const long long sms = d->sms;
     gather_kernel<true><<<(unsigned int)(tiles < sms ? tiles : sms), 1024,
                           bytes, s>>>((const uint32_t*)x, n_table,
                                       (const int4*)idx, (uint4*)o, nvec,

@@ -13,9 +13,9 @@ TPU probes' unsigned 32-bit values bit for bit.
     python -m kiss_tpu_torch.experiments.micro_copy [--device cuda]
 
 prints the card's name and power limit, then label, best-of-3
-milliseconds (CUDA events) and GB/s (bytes read plus bytes written) of
-``x + 1`` and ``x.clone()`` in PyTorch and of each probe, and the chain's
-Tops/s.
+milliseconds (CUDA events, per call of 10 in a row) and GB/s (bytes read
+plus bytes written) of ``x + 1`` and ``x.clone()`` in PyTorch and of each
+probe, and the chain's Tops/s.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from kiss_tpu_torch import kernels
 from kiss_tpu_torch.experiments.micro_kernels import (
     LANES,
     VEC,
+    COPY_LAUNCHES,
     whole_tiles,
     best_seconds,
     device_line,
@@ -47,7 +48,7 @@ MAX_ROWS_2D = 65_535  # the y extent of a CUDA grid
 
 
 def timed(label, fn, *args, n=3):
-    best = best_seconds(fn, *args, n=n)
+    best = best_seconds(fn, *args, n=n, launches=COPY_LAUNCHES)
     gbs = args[0].numel() * 4 * 2 / 1e9 / best
     print(f"{label:52s} {best*1e3:9.3f}ms  {gbs:7.1f} GB/s", flush=True)
     return best
@@ -59,7 +60,13 @@ def copy_grid_plain(x, rows):
 
 def copy_grid(x, rows):
     """P5: identity copy of int32 ``[R, 128]``, a thread block per tile
-    of ``rows`` rows (the last tile may be short). The TPU probe's
+    of ``rows`` rows (the last tile may be short). While there is a tile
+    for every SM, blocks of 1024 threads load four 16-byte vectors a
+    thread before the first store. With fewer tiles than SMs a block is
+    one warp whose elected thread streams the tile through a ring of six
+    16 KB shared-memory stages with asynchronous bulk copies in both
+    directions: the bytes in flight are then the ring's, not the thread
+    count's, and no thread touches the data. The TPU probe's
     ``semantics`` argument is dropped: it was a hint on how the TPU may
     schedule its sequential grid, which has no meaning on a GPU, whose
     blocks always run in parallel."""
@@ -112,7 +119,8 @@ def run_heavy_plain(x, rows):
 def run_heavy(x, rows):
     """P7: 64 x ``v = v * 2654435761 + 12345`` (mod 2**32) per element of
     uint32 bits held in int32 ``[R, 128]``: 128 integer operations for
-    every 8 bytes moved."""
+    every 8 bytes moved, so the integer lanes bound it. Blocks of 512
+    threads, four 16-byte loads a thread before the first store."""
     require_tiles(x, "x", rows)
     if x.device.type == "cpu":
         return run_heavy_plain(x, rows)

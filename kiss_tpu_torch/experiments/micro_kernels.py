@@ -15,7 +15,9 @@ Arrays are shaped ``[R, 128]`` as on the TPU. The TPU probes' unsigned
 32-bit keys are carried as ``int32`` tensors holding the same bits (torch
 has no arithmetic on ``uint32``); payloads and indices are ``int32``.
 ``rows`` was the TPU kernel's block of ``rows x 128`` elements; here it is
-the tile one thread block owns, so the probes can still sweep it.
+the tile one thread block owns, so the probes can still sweep it. How a
+block moves its tile is chosen so that the bytes it keeps in flight do not
+shrink with the number of blocks (see :func:`launch_tile_map`).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 ``*_plain`` version. Run on the card:
@@ -23,7 +25,8 @@ A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     python -m kiss_tpu_torch.experiments.micro_kernels [--device cuda]
 
 prints the card's name and power limit, then for each probe its label,
-best-of-3 milliseconds (CUDA events) and the derived rate, and beside it
+best-of-3 milliseconds (CUDA events; per call of 10 in a row for the
+streaming copy) and the derived rate, and beside it
 the one PyTorch call that computes the same function where there is one.
 """
 
@@ -44,6 +47,8 @@ from kiss_tpu_torch.utils.device import resolve_device
 N = 48_800_649
 LANES = 128
 VEC = 4  # 32-bit elements per 16-byte vector
+# calls in a row per timing of a streaming copy (see best_seconds)
+COPY_LAUNCHES = 10
 # largest table the gather stages in a block's shared memory (227 KB)
 SHARED_TABLE_BYTES = 232_448
 
@@ -62,9 +67,14 @@ def device_line(dev: torch.device) -> str:
     return out.splitlines()[0]
 
 
-def best_seconds(fn, *args, n=3) -> float:
+def best_seconds(fn, *args, n=3, launches=1) -> float:
     """Best of ``n`` timings of ``fn(*args)`` after one warm-up call: CUDA
-    events when the first argument is on a card, the host clock else."""
+    events when the first argument is on a card, the host clock else.
+    With ``launches`` > 1 a timing spans that many calls in a row and is
+    divided by their number: the card then works through a queue, and the
+    host's time to prepare one launch (tens of microseconds of Python,
+    as long as a whole streaming kernel) no longer sits between the two
+    events."""
     on_card = args[0].is_cuda
     fn(*args)
     if on_card:
@@ -75,19 +85,21 @@ def best_seconds(fn, *args, n=3) -> float:
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn(*args)
+            for _ in range(launches):
+                fn(*args)
             stop.record()
             torch.cuda.synchronize()
-            best = min(best, start.elapsed_time(stop) / 1e3)
+            best = min(best, start.elapsed_time(stop) / 1e3 / launches)
         else:
             t0 = time.perf_counter()
-            fn(*args)
-            best = min(best, time.perf_counter() - t0)
+            for _ in range(launches):
+                fn(*args)
+            best = min(best, (time.perf_counter() - t0) / launches)
     return best
 
 
-def timed(label, fn, *args, n=3):
-    best = best_seconds(fn, *args, n=n)
+def timed(label, fn, *args, n=3, launches=1):
+    best = best_seconds(fn, *args, n=n, launches=launches)
     print(f"{label:48s} {best*1e3:9.3f}ms", flush=True)
     return best
 
@@ -117,8 +129,16 @@ def whole_tiles(x: torch.Tensor, name: str, rows: int) -> int:
 
 def launch_tile_map(entry: str, counter: str, x: torch.Tensor, rows: int,
                     *scalars) -> torch.Tensor:
-    """Launch one of the elementwise probes (a block per tile of
-    ``rows * 128`` elements, 16 bytes a thread) on a CUDA tensor."""
+    """Launch one of the elementwise probes on a CUDA tensor: a thread
+    block per tile of ``rows * 128`` elements. A copy is bound by device
+    memory and runs at the rate of the bytes it keeps in flight; large
+    tiles mean few blocks, so each block has to keep many. Batched loads:
+    every thread of a large block starts four 16-byte loads before its
+    first store. The identity copy with fewer tiles than SMs takes a ring
+    instead, the faster of the two on the H100 there: one elected thread
+    streams the tile through six 16 KB stages of shared memory with
+    asynchronous bulk copies in both directions, so 80 KB of loads stay
+    in flight a block and no thread touches the data."""
     out = torch.empty_like(x)
     # [R, 128] int32 is R * 32 vectors of 16 bytes: never a ragged vector
     nvec = x.numel() // VEC
@@ -140,7 +160,10 @@ def stream_copy_plain(x, rows):
 def stream_copy(x, rows):
     """P1: ``x + 1`` (mod 2**32) over uint32 bits held in int32
     ``[R, 128]``, a thread block per tile of ``rows`` rows (the last tile
-    may be short)."""
+    may be short). Blocks of 1024 threads, each thread loading four
+    16-byte vectors before its first store (64 KB in flight a block): the
+    threads must touch every element anyway, and on the card this beat
+    moving the tile through a ring of shared-memory stages."""
     require_tiles(x, "x", rows)
     if x.device.type == "cpu":
         return stream_copy_plain(x, rows)
@@ -314,9 +337,11 @@ def main(argv=None) -> int:
     gb = Np * 4 / 1e9
     print(f"N={Np} ({gb:.2f} GB/operand)", flush=True)
 
-    t = timed("stream copy u32 (rows=2048)", stream_copy, k, ROWS)
+    t = timed("stream copy u32 (rows=2048)", stream_copy, k, ROWS,
+              launches=COPY_LAUNCHES)
     print(f"  -> {2 * gb / t:.0f} GB/s")
-    t = timed("torch x + 1 (library call)", lambda x: x + 1, k)
+    t = timed("torch x + 1 (library call)", lambda x: x + 1, k,
+              launches=COPY_LAUNCHES)
     print(f"  -> {2 * gb / t:.0f} GB/s")
 
     for label, d in (("d=1", 1), ("d=128", 128), ("d=64k", 1 << 16)):

@@ -153,7 +153,23 @@ def _counted(name, fn, *args):
     return out
 
 
-@pytest.mark.parametrize("R,rows", [(32, 8), (4096, 2048), (5000, 512)])
+# The elementwise template moves a tile in batches of 4 vectors a thread
+# (128 rows a batch of 1024 threads, 64 of 512), or, for copy_grid with
+# fewer tiles than SMs, through a ring of 6 stages of 16 KB (32 rows a
+# stage, 192 rows the ring). Shapes on the edges of those: a tile smaller
+# than a stage (8 rows), of exactly one stage (32) and one row more (33),
+# of the ring and one row more (192, 193), many times the ring (2048), a
+# ragged last tile (5000 / 512, 1000 / 193), a tile larger than the array
+# (300 / 1000), 1-row tiles, a row more than a batch (129), and far more
+# tiles than blocks resident at once (4096, 607, 2000, 256).
+TILE_MAP_SHAPES = [
+    (32, 8), (4096, 2048), (5000, 512), (32, 32), (96, 32), (99, 33),
+    (384, 192), (386, 193), (1000, 193), (300, 1000), (4096, 1), (20000, 33),
+    (64000, 32), (33000, 129),
+]
+
+
+@pytest.mark.parametrize("R,rows", TILE_MAP_SHAPES)
 def test_stream_copy_matches_plain(cuda, R, rows):
     x, _ = _probe_pair(cuda, R, R)
     got = _counted("stream_copy", micro_kernels.stream_copy, x, rows)
@@ -212,13 +228,41 @@ def test_kernel_gather_clamps_bad_indices(cuda, entries):
     assert bool((got.reshape(-1)[4:] == table[0]).all())
 
 
-@pytest.mark.parametrize("R,rows", [(32, 8), (4096, 2048), (5000, 512)])
+@pytest.mark.parametrize("R,rows", TILE_MAP_SHAPES)
 def test_copy_grid_and_heavy_match_plain(cuda, R, rows):
     x, _ = _probe_pair(cuda, R, R + 1)
     got = _counted("copy_grid", micro_copy.copy_grid, x, rows)
     assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
     got = _counted("run_heavy", micro_copy.run_heavy, x, rows)
     assert torch.equal(got, micro_copy.run_heavy_plain(x, rows))
+
+
+@pytest.mark.parametrize("probe", ["copy_grid", "stream_copy", "run_heavy"])
+@pytest.mark.parametrize("extra_vec", [1, -1, 0])
+def test_tile_map_tile_of_ring_size_and_16_bytes(cuda, probe, extra_vec):
+    """A tile of the ring's 6 x 1024 vectors and one 16-byte vector more
+    (or less, or none): finer than any whole number of rows, so straight
+    through the library's entry point; the array is 5 such tiles and a
+    ragged sixth."""
+    tile_vec = 6 * 1024 + extra_vec
+    x, _ = _probe_pair(cuda, 1000, 17)
+    out = torch.empty_like(x)
+    fn, plain, scalars = {
+        "copy_grid": (kernels.library().kt_probe_copy_grid,
+                      micro_copy.copy_grid_plain, ()),
+        "stream_copy": (kernels.library().kt_probe_stream_copy,
+                        micro_kernels.stream_copy_plain, ()),
+        "run_heavy": (kernels.library().kt_probe_heavy,
+                      micro_copy.run_heavy_plain,
+                      (micro_copy.HEAVY_MUL, micro_copy.HEAVY_ADD)),
+    }[probe]
+    kernels.check(
+        fn(x.data_ptr(), out.data_ptr(), x.numel() // 4, tile_vec, *scalars,
+           kernels.stream_of(x.device)),
+        probe,
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain(x, 1))
 
 
 @pytest.mark.parametrize("R,rows", [(32, 8), (4096, 2048), (4096, 1),

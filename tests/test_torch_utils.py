@@ -33,6 +33,7 @@ def test_imports_without_jax():
         "import kiss_tpu_torch.utils.native, kiss_tpu_torch.utils.timing\n"
         "import kiss_tpu_torch.experiments.micro_kernels\n"
         "import kiss_tpu_torch.experiments.micro_copy\n"
+        "import kiss_tpu_torch.utils.synth\n"
         "bad = [m for m in sys.modules if m == 'kiss_tpu' or "
         "m.startswith('kiss_tpu.')]\n"
         "assert not bad, bad\n"
