@@ -15,6 +15,7 @@ exits non-zero and prints no result line):
   3. each kernel against its plain PyTorch version on the card, exact
      (tolerance 0: every output is an integer), on edge cases at
      N = 2**22 + 7: W = 1, all-equal keys, a stable payload, lookup seeds;
+     K1 also at N = 0, 1 and one key either side of one and two tiles;
   4. the golden outputs of the reference binary (tests/golden/*.npz)
      reproduced on the card, and the ``.fmi`` archives the reference
      binary wrote loaded and queried through the range BFS;
@@ -39,9 +40,12 @@ exits non-zero and prints no result line):
      (48,758,784 elements), launch counters reset just before and read
      just after; then each probe kernel P1-P7 against its plain version,
      exact, at those shapes, with its time, the plain version's and the
-     one PyTorch call's where there is one;
+     one PyTorch call's where there is one; P6 and ``x.clone()`` timed in
+     turns;
   9. step times of the main path and of the plain versions at the same
-     shapes, then one JSON line with each kernel's launches, error,
+     shapes, K1 also at a tail-refinement shape (W = 8, N = 1,048,576);
+     the two sorts K1 and P3 split by device kernel (``torch.profiler``);
+     then one JSON line with each kernel's launches, error,
      times and bound, and as the last line ``{"ok": true, "device":
      {...}}``.
 
@@ -167,22 +171,10 @@ def exact(a, b) -> int:
     return 0
 
 
-def seed_sort_words(text_dev):
-    """The 5 words the seed sort hands K1 (64 raw chars + end/position)."""
-    from kiss_tpu_torch.ops import pack
-    from kiss_tpu_torch.ops.suffix_sort import _pack_fields
-
-    n = text_dev.shape[0]
-    words, _ = _pack_fields(
-        [(w, 32, False) for w in pack.suffix_key_words_2bit(text_dev, 64, 0)]
-        + [(pack.fused_end_pos(n, 64, text_dev.device),
-            max(n.bit_length(), 1), True)]
-    )
-    return words
-
-
 def phase_kernels(torch, np, err):
     """Each kernel against its plain version on edge cases."""
+    from kiss_tpu_torch import kernels
+    from kiss_tpu_torch.experiments.sort_split import seed_sort_words
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
     from kiss_tpu_torch.ops.radix_sort import (
@@ -197,8 +189,8 @@ def phase_kernels(torch, np, err):
     N = SMALL_N + 1
     w5 = seed_sort_words(torch.from_numpy(text).to(dev))
 
-    def rand_words(w, high):
-        x = rng.integers(0, high, (w, N), dtype=np.uint64).astype(np.uint32)
+    def rand_words(w, high, n=N):
+        x = rng.integers(0, high, (w, n), dtype=np.uint64).astype(np.uint32)
         return torch.from_numpy(x.view(np.int32)).to(dev)
 
     cases = {
@@ -208,6 +200,11 @@ def phase_kernels(torch, np, err):
         "all-equal W=5": torch.full((5, N), 7, dtype=torch.int32, device=dev),
         "stable payload W=8 (4 values)": rand_words(8, 4),
     }
+    # keys a tile of K1's pass kernel holds
+    tile = kernels.library().kt_radix_tile_keys()
+    small = (0, 1, tile - 1, tile, tile + 1, 2 * tile - 1, 2 * tile + 1)
+    cases.update({f"W=5 N={n}": rand_words(5, 2**32, n) for n in small})
+    cases.update({f"W=8 ties N={n}": rand_words(8, 3, n) for n in small})
     for name, keys in cases.items():
         gk, gp = radix_sort_words(keys)
         pk, pp = radix_sort_words_plain(keys)
@@ -252,9 +249,10 @@ def phase_kernels(torch, np, err):
     torch.cuda.synchronize()
     say(
         f"kernels vs plain, edge cases (exact, tolerance 0): K1 on "
-        f"{len(cases)} key sets "
-        f"at N = {N}; K2 on {nq} queries x qlen 25/12 x lookup 0/8 over a "
-        f"{SMALL_N}-char index; K3 rows ({nq}) and stats: all equal"
+        f"{len(cases)} key sets, 5 at N = {N} and {2 * len(small)} at N = "
+        f"{', '.join(map(str, small))}; K2 on {nq} queries x qlen 25/12 x "
+        f"lookup 0/8 over a {SMALL_N}-char index; K3 rows ({nq}) and "
+        "stats: all equal"
     )
 
 
@@ -378,8 +376,10 @@ def phase_probe_path(torch, kernels):
 
 def phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds):
     """P1-P7 against their plain versions at the probes' shapes, exact,
-    with the kernel's, the plain version's and the PyTorch call's time."""
+    with the kernel's, the plain version's and the PyTorch call's time.
+    Returns the bytes a second ``x.clone()`` moved (read + written)."""
     import math
+    import statistics
 
     from kiss_tpu_torch.experiments import micro_copy as mc
     from kiss_tpu_torch.experiments import micro_kernels as mk
@@ -469,12 +469,21 @@ def phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds):
             plain_reps=PROBE_REPS)
     keep("copy_2d", t, 8 * n, 0)
     notes.append(f"copy_2d {fmt(t)} -> {2 * gb / t[0] * 1e3:.0f} GB/s")
+    # P6 against the call in turns: two timings a few seconds apart differ
+    # by more than the two differ from each other
+    turns = [(cuda_ms(lambda: mc.copy_2d(k, rows), PROBE_REPS),
+              cuda_ms(k.clone, PROBE_REPS)) for _ in range(7)]
+    p6, clone = (statistics.median(x) for x in zip(*turns))
+    notes.append(f"copy_2d and x.clone() in turns, {len(turns)} x "
+                 f"{PROBE_REPS} launches each: medians {p6:.4f} / "
+                 f"{clone:.4f} ms, ratio {p6 / clone:.4f}")
     t = run("run_heavy", lambda: mc.run_heavy(k, rows),
             lambda: mc.run_heavy_plain(k, rows))
     keep("run_heavy", t, 8 * n, 128 * n)
     notes.append(f"run_heavy {fmt(t)} -> {n * 128 / t[0] / 1e9:.2f} Tops/s")
     say(f"probes vs plain on {smi} at N={n}, rows={rows} (exact, tolerance "
         "0; kernel / plain / PyTorch call ms): " + "; ".join(notes))
+    return 8 * n / (clone * 1e-3)
 
 
 def main() -> int:
@@ -488,6 +497,8 @@ def main() -> int:
 
     sys.path.insert(0, ROOT)
     from kiss_tpu_torch import cli, kernels
+    from kiss_tpu_torch.experiments import micro_kernels as mk
+    from kiss_tpu_torch.experiments import sort_split
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
     from kiss_tpu_torch.ops.radix_sort import (
@@ -617,7 +628,7 @@ def main() -> int:
             err["radix_sort_words"], exact(got[1], want[1]),
             exact(got[0], want[0]),
         )
-        sort_calls.append(tuple(keys.shape))
+        sort_calls.append((*keys.shape, sort_split.digit_passes(keys)))
         return got
 
     for k in (256, -1):
@@ -662,7 +673,7 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"kernels vs plain at the main path's shapes (exact, tolerance 0): "
         f"K1 on all {len(sort_calls)} sort calls of k=256 and k=-1 at "
-        f"n={N_TEXT} (W x N: {sort_calls}); K2 and K3 stats on "
+        f"n={N_TEXT} (W, N, digit passes: {sort_calls}); K2 and K3 stats on "
         f"{len(chunk_stats)} chunks of {CLI_CHUNK} x {QLEN} and the "
         f"{N_QUERIES}-query batch, lookup {L}; K3 rows on the -q rows "
         f"({rows.shape[0]}) and {N_QUERIES} random rows: all equal")
@@ -760,7 +771,8 @@ def main() -> int:
     # ---- 8. the probe path, then the probes against their plain versions
     launches.update(phase_probe_path(torch, kernels))
     ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
-    phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds)
+    clone_bytes_per_s = phase_probes(torch, smi, err, ms, plain_ms,
+                                     library_ms, bounds)
 
     # ---- 9. step and kernel times, kernels vs plain versions
     def build_with(sort_impl):
@@ -776,7 +788,8 @@ def main() -> int:
         _, t_p = wall_s(lambda: fn(radix_sort_words_plain))
         _, t_k2 = wall_s(lambda: fn(radix_sort_words))
         times[label] = (min(t_k, t_k2), t_p)
-    w5 = seed_sort_words(text_dev)
+
+    w5 = sort_split.seed_sort_words(text_dev)
     ms["radix_sort_words"] = cuda_ms(lambda: radix_sort_words(w5), 5)
     plain_ms["radix_sort_words"] = cuda_ms(
         lambda: radix_sort_words_plain(w5), 3
@@ -786,7 +799,28 @@ def main() -> int:
     bounds["radix_sort_words"] = bound_ms(
         2 * w5.numel() * 4 + 8 * w5.shape[1], w5.numel() * 4
     )
+    passes5 = sort_split.digit_passes(w5)
+    # beside the bound: what an 8-bit LSD sort of these keys must move, a
+    # (key, index) pair read and written in every pass, at the rate
+    # x.clone() reached in the probe phase of this run
+    lsd_floor_ms = passes5 * 16 * w5.shape[1] / clone_bytes_per_s * 1e3
     del w5
+    tail_shape = sort_split.TAIL_SHAPE  # a tail-refinement sort
+    w8 = sort_split.rank_like_words(tail_shape, dev)
+    got, want = radix_sort_words(w8), radix_sort_words_plain(w8)
+    err["radix_sort_words"] = max(
+        err["radix_sort_words"], exact(got[1], want[1]), exact(got[0], want[0])
+    )
+    del got, want
+    tail_ms = (cuda_ms(lambda: radix_sort_words(w8), 5),
+               cuda_ms(lambda: radix_sort_words_plain(w8), 3))
+    del w8
+    say(f"K1 on {smi}: seed sort {ms['radix_sort_words']:.3f} ms (plain "
+        f"{plain_ms['radix_sort_words']:.3f}), bound "
+        f"{bounds['radix_sort_words'][0]:.3f}, floor of an 8-bit LSD sort of "
+        f"its {passes5} passes at x.clone()'s {clone_bytes_per_s / 1e12:.2f} TB/s "
+        f"{lsd_floor_ms:.3f}; tail shape W={tail_shape[0]} N={tail_shape[1]} "
+        f"{tail_ms[0]:.3f} ms (plain {tail_ms[1]:.3f})")
     ms["fm_backward_search"] = cuda_ms(
         lambda: fm.get_range_packed_device(arrays, qw, QLEN, L), 10
     )
@@ -848,6 +882,34 @@ def main() -> int:
         + f"; range BFS stats (plain PyTorch ops) of the 1M ranges "
         f"{bfs_ms / 1e3:.4f} and of one {CLI_CHUNK}-query chunk "
         f"{bfs_chunk_ms / 1e3:.4f}, beside K3 stats")
+
+    # ---- the two sorts split by device kernel. Last of all: once the
+    # profiler has run, every launch of the process costs the host more,
+    # which would show in the timings of the small kernels above
+    def split_line(label, fn):
+        """One line: what the device ran inside ``fn()``, summed by
+        kernel, largest first (count, total ms)."""
+        events, _ = sort_split.device_events(fn)
+        parts = sorted(sort_split.by_name(events).items(),
+                       key=lambda kv: -kv[1][1])
+        say(f"split of {label} on {smi} (device kernels by torch.profiler, "
+            "count and total ms): "
+            + ", ".join(f"{name[:48]} x{c} {us / 1e3:.3f}"
+                        for name, (c, us) in parts))
+
+    w5 = sort_split.seed_sort_words(text_dev)
+    split_line(f"K1 seed sort W=5 N={w5.shape[1]} ({passes5} passes)",
+               lambda: radix_sort_words(w5))
+    del w5
+    w8 = sort_split.rank_like_words(tail_shape, dev)
+    split_line(f"K1 tail shape W={tail_shape[0]} N={tail_shape[1]}",
+               lambda: radix_sort_words(w8))
+    del w8
+    pk, pv = mk.probe_inputs(N_PROBE, dev)
+    for r in (256, 1024, PROBE_ROWS):
+        split_line(f"P3 tile_sort T={r * mk.LANES // 1024}K N={N_PROBE}",
+                   lambda: mk.tile_sort(pk, pv, r))
+    del pk, pv
 
     tmpdir.cleanup()
     check(sys.modules.get("jax") is None, "jax was imported")

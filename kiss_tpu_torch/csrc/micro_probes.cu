@@ -13,9 +13,10 @@
 // What bounds them on the H100: device-memory bytes for all but two. The
 //   multiply-add chain does 128 integer operations per 8 bytes moved and is
 //   bound by the integer lanes. The in-tile sort runs log2(T)(log2(T)+1)/2
-//   compare-exchange steps over every pair, so it is bound by shared-memory
-//   traffic in the steps it keeps on chip and by device memory in the steps
-//   whose partners are further apart than a block's shared memory holds.
+//   compare-exchange steps over every pair: it is bound by the warp
+//   shuffles and integer compares of the steps it runs in registers, and by
+//   device memory in the trips it needs because partners are further apart
+//   than one block holds.
 //
 // What the design does about it:
 //   - the three elementwise probes (streaming copy, grid copy, multiply-add
@@ -51,9 +52,20 @@
 //     stays resident in L2;
 //   - one bitonic stage is one thread per pair, straight from device
 //     memory: partners i and i | d are read and written once;
-//   - the in-tile sort sorts sub-blocks of 8192 pairs in shared memory
-//     (every step with d < 8192), and runs the steps with d >= 8192 through
-//     the one-stage kernel in place.
+//   - the in-tile sort stays a bitonic network and is cut into launches
+//     that each make one trip through device memory and run as many steps
+//     as the data dependence allows on the way. A chunk of 8192 elements
+//     runs every step with d < 8192 in one launch: 16 elements a thread in
+//     registers, steps inside a thread's own elements as register
+//     compare-exchanges, steps across lanes by __shfl_xor_sync, and a change
+//     of layout through shared memory (one barrier) where the partners are
+//     further apart. The steps with d >= 8192 of a merge touch partners that
+//     differ in high index bits only: a thread that loads, for one low
+//     offset, the 32 elements 8192 (or more) apart holds every partner of up
+//     to 5 such steps and runs them in registers, consecutive threads
+//     reading consecutive elements. A merge size above 8192 then costs two
+//     trips (one wide, one local) where one launch per wide step cost up to
+//     5 + 1: 11 trips for a tile of 256K elements instead of 21.
 //
 // Keys are unsigned 32-bit, payloads signed 32-bit; pairs order by (key,
 // payload). Every entry point returns cudaGetLastError() after its launches
@@ -65,8 +77,8 @@
 namespace {
 
 constexpr int kMapThreads = 512;
-constexpr int kSortSub = 8192;  // pairs a block sorts in shared memory
-constexpr int kSortThreads = 1024;
+constexpr int kSortSub = 8192;  // elements of a chunk of the in-tile sort
+constexpr int kSortThreads = 512;  // 16 elements a thread
 constexpr int kHeavySteps = 64;
 constexpr long long kMaxGrid = 0x7FFFFFFFll;
 
@@ -266,12 +278,14 @@ __global__ void tile_ring_copy_kernel(const uint4* __restrict__ x,
 }
 
 // What a launch needs to know of the current device, asked once a device:
-// its number of SMs, and whether the ring kernel has been given its shared
-// memory there (above 48 KB a launch needs the attribute; and as much of
-// the SM's L1 as shared memory as it takes to hold two rings).
+// its number of SMs, and whether the ring kernel and the in-tile sort's
+// local kernel have been given their shared memory there (above 48 KB a
+// launch needs the attribute; the ring also as much of the SM's L1 as
+// shared memory as it takes to hold two rings).
 struct DeviceFacts {
   int sms = 0;
   bool ring_ready = false;
+  bool sort_local_ready = false;
 };
 
 constexpr int kMaxDevices = 64;
@@ -486,54 +500,298 @@ int launch_one_stage(const void* k, const void* v, void* ko, void* vo,
   return (int)cudaGetLastError();
 }
 
-// Bitonic steps inside a sub-block of `sub` consecutive pairs held in
-// shared memory (sub a power of two that divides the power-of-two tile).
-// merge_size == 0: the full network up to runs of `sub` (sizes 2 .. sub).
-// merge_size > sub: the steps d = sub / 2 .. 1 of the merge of runs of
-// merge_size. A run is ascending where (tile-local index & size) == 0.
-// Safe in place: a block reads its sub-block whole before it writes it.
-__global__ void bitonic_local_kernel(const uint32_t* k, const int* v,
-                                     uint32_t* ko, int* vo, long long tile,
-                                     int sub, long long merge_size) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* sk = smem;
-  int* sv = (int*)(smem + sub);
-  const long long base = (long long)blockIdx.x * sub;
-  const long long local0 = base & (tile - 1);
-  const uint4* k4 = (const uint4*)(k + base);
-  const int4* v4 = (const int4*)(v + base);
-  for (int s = threadIdx.x; s < sub / 4; s += blockDim.x) {
-    ((uint4*)sk)[s] = k4[s];
-    ((int4*)sv)[s] = v4[s];
+// ---- P3: the in-tile sort. Element i of a chunk of kSortSub consecutive
+// elements lives, at any moment, in a register of one thread; which
+// register of which thread is the layout:
+//   layout A: thread t holds i = 16 t + r, r = 0..15. Steps with d < 16 run
+//     in its registers, steps with d = 16..256 by __shfl_xor_sync (index
+//     bits 4..8 are the lane);
+//   layout B: thread t holds i = 512 r + t. Steps with d = 512..4096 run in
+//     its registers.
+// A chunk changes layout through shared memory (one __syncthreads()). A
+// slot is padded by 4 words per 16 so that layout A's 16-byte accesses
+// fall on distinct banks.
+
+constexpr int kSortRegs = 16;
+constexpr int kSortSlots = kSortSub / 16 * 20;  // padded words per array
+
+__device__ __forceinline__ int sort_slot(int i) { return i + (i >> 4) * 4; }
+
+// (ka, va) < (kb, vb) for payloads whose sign bit is flipped (sign_flipped):
+// key and payload then order as one unsigned 64-bit number, two compare
+// instructions where pair_less takes five
+__device__ __forceinline__ bool flipped_less(uint32_t ka, int va, uint32_t kb,
+                                             int vb) {
+  return (((unsigned long long)ka << 32) | (uint32_t)va) <
+         (((unsigned long long)kb << 32) | (uint32_t)vb);
+}
+
+__device__ __forceinline__ int sign_flipped(int v) {
+  return (int)((uint32_t)v ^ 0x80000000u);
+}
+
+// partners a (lower index) and b: ascending leaves the smaller pair at a
+template <bool FLIPPED>
+__device__ __forceinline__ void compare_exchange(uint32_t& ka, int& va,
+                                                 uint32_t& kb, int& vb,
+                                                 bool asc) {
+  const bool less = FLIPPED ? flipped_less(kb, vb, ka, va)
+                            : pair_less(kb, vb, ka, va);
+  const bool swap = less == asc;
+  const uint32_t tk = swap ? kb : ka;
+  const int tv = swap ? vb : va;
+  kb = swap ? ka : kb;
+  vb = swap ? va : vb;
+  ka = tk;
+  va = tv;
+}
+
+struct SortChunk {
+  uint32_t k[kSortRegs];
+  int v[kSortRegs];  // sign bit flipped while in registers or shared memory
+  unsigned int local0;     // tile-local index of the chunk's first element
+  unsigned int tile_mask;  // tile - 1
+
+  // a run is ascending where (tile-local index & size) == 0
+  __device__ __forceinline__ bool asc(unsigned int i, unsigned int size) const {
+    return (((local0 + i) & tile_mask) & size) == 0;
   }
-  __syncthreads();
-  long long size = merge_size ? merge_size : 2;
-  const long long last = merge_size ? merge_size : sub;
-  for (; size <= last; size <<= 1) {
-    const long long top = size >> 1;
-    for (int d = top < sub / 2 ? (int)top : sub / 2; d > 0; d >>= 1) {
-      for (int p = threadIdx.x; p < sub / 2; p += blockDim.x) {
-        const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
-        const int j = i | d;
-        const bool asc = ((local0 + i) & size) == 0;
-        const uint32_t ki = sk[i], kj = sk[j];
-        const int vi = sv[i], vj = sv[j];
-        if (pair_less(kj, vj, ki, vi) == asc) {
-          sk[i] = kj;
-          sk[j] = ki;
-          sv[i] = vj;
-          sv[j] = vi;
+
+  // one step between registers DR apart; element r has chunk index
+  // first + r * stride (first a multiple of 16 * stride or below stride)
+  template <int DR>
+  __device__ __forceinline__ void reg_step(unsigned int first,
+                                           unsigned int stride,
+                                           unsigned int size) {
+    if (size >= kSortRegs * stride) {  // one direction for the whole thread
+      const bool up = asc(first, size);
+#pragma unroll
+      for (int r = 0; r < kSortRegs; ++r) {
+        if ((r & DR) == 0) {
+          compare_exchange<true>(k[r], v[r], k[r | DR], v[r | DR], up);
         }
       }
-      __syncthreads();
+    } else {
+#pragma unroll
+      for (int r = 0; r < kSortRegs; ++r) {
+        if ((r & DR) == 0) {
+          compare_exchange<true>(k[r], v[r], k[r | DR], v[r | DR],
+                                 asc(first + r * stride, size));
+        }
+      }
     }
   }
-  uint4* ko4 = (uint4*)(ko + base);
-  int4* vo4 = (int4*)(vo + base);
-  for (int s = threadIdx.x; s < sub / 4; s += blockDim.x) {
-    ko4[s] = ((uint4*)sk)[s];
-    vo4[s] = ((int4*)sv)[s];
+
+  // one step of layout A between lanes LANE_MASK apart (d = 16 LANE_MASK,
+  // so size >= 32 and the thread's 16 elements share a direction). The
+  // lower lane of a pair keeps the smaller element in an ascending run;
+  // of two equal elements either may be kept.
+  template <int LANE_MASK>
+  __device__ __forceinline__ void lane_step(unsigned int first,
+                                            unsigned int size, int lane) {
+    const bool keep_min = ((lane & LANE_MASK) == 0) == asc(first, size);
+#pragma unroll
+    for (int r = 0; r < kSortRegs; ++r) {
+      const uint32_t ok = __shfl_xor_sync(0xFFFFFFFFu, k[r], LANE_MASK);
+      const int ov = __shfl_xor_sync(0xFFFFFFFFu, v[r], LANE_MASK);
+      const bool take = flipped_less(ok, ov, k[r], v[r]) == keep_min;
+      k[r] = take ? ok : k[r];
+      v[r] = take ? ov : v[r];
+    }
   }
+
+  // layout A: the steps d = d_from, d_from / 2, .. 1 (d_from <= 256)
+  __device__ __forceinline__ void steps_a(unsigned int size, int d_from,
+                                          int tid) {
+    const unsigned int first = (unsigned int)tid * kSortRegs;
+    const int lane = tid & 31;
+    if (d_from >= 256) lane_step<16>(first, size, lane);
+    if (d_from >= 128) lane_step<8>(first, size, lane);
+    if (d_from >= 64) lane_step<4>(first, size, lane);
+    if (d_from >= 32) lane_step<2>(first, size, lane);
+    if (d_from >= 16) lane_step<1>(first, size, lane);
+    if (d_from >= 8) reg_step<8>(first, 1, size);
+    if (d_from >= 4) reg_step<4>(first, 1, size);
+    if (d_from >= 2) reg_step<2>(first, 1, size);
+    reg_step<1>(first, 1, size);
+  }
+
+  // layout B: the steps d = d_from .. 512 (d_from <= 4096)
+  __device__ __forceinline__ void steps_b(unsigned int size, int d_from,
+                                          int tid) {
+    constexpr unsigned int stride = kSortSub / kSortRegs;  // 512
+    if (d_from >= 4096) reg_step<8>(tid, stride, size);
+    if (d_from >= 2048) reg_step<4>(tid, stride, size);
+    if (d_from >= 1024) reg_step<2>(tid, stride, size);
+    reg_step<1>(tid, stride, size);
+  }
+
+  __device__ __forceinline__ void load_a(const uint32_t* sk, const int* sv,
+                                         int tid) {
+    const uint4* k4 = (const uint4*)(sk + sort_slot(tid * kSortRegs));
+    const int4* v4 = (const int4*)(sv + sort_slot(tid * kSortRegs));
+#pragma unroll
+    for (int q = 0; q < kSortRegs / 4; ++q) {
+      const uint4 a = k4[q];
+      const int4 b = v4[q];
+      k[4 * q] = a.x, k[4 * q + 1] = a.y, k[4 * q + 2] = a.z, k[4 * q + 3] = a.w;
+      v[4 * q] = b.x, v[4 * q + 1] = b.y, v[4 * q + 2] = b.z, v[4 * q + 3] = b.w;
+    }
+  }
+
+  __device__ __forceinline__ void store_a(uint32_t* sk, int* sv,
+                                          int tid) const {
+    uint4* k4 = (uint4*)(sk + sort_slot(tid * kSortRegs));
+    int4* v4 = (int4*)(sv + sort_slot(tid * kSortRegs));
+#pragma unroll
+    for (int q = 0; q < kSortRegs / 4; ++q) {
+      k4[q] = make_uint4(k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
+      v4[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  }
+
+  __device__ __forceinline__ void load_b(const uint32_t* sk, const int* sv,
+                                         int tid) {
+#pragma unroll
+    for (int r = 0; r < kSortRegs; ++r) {
+      const int s = sort_slot(r * (kSortSub / kSortRegs) + tid);
+      k[r] = sk[s];
+      v[r] = sv[s];
+    }
+  }
+
+  __device__ __forceinline__ void store_b(uint32_t* sk, int* sv,
+                                          int tid) const {
+#pragma unroll
+    for (int r = 0; r < kSortRegs; ++r) {
+      const int s = sort_slot(r * (kSortSub / kSortRegs) + tid);
+      sk[s] = k[r];
+      sv[s] = v[r];
+    }
+  }
+};
+
+// Bitonic steps inside chunks of kSortSub consecutive elements (the tile a
+// power of two >= 128; n a multiple of the tile, so a thread's 16
+// consecutive elements are inside the array or outside it together).
+// merge_size == 0: the full network up to runs of min(tile, kSortSub):
+//   sizes 2 .. that, every step.
+// merge_size > kSortSub (and tile >= merge_size): the steps
+//   d = kSortSub / 2 .. 1 of the merge of runs of merge_size.
+// Safe in place: a block reads its chunk whole before it writes it.
+__global__ void __launch_bounds__(kSortThreads, 2)
+bitonic_local_kernel(const uint32_t* k, const int* v, uint32_t* ko, int* vo,
+                     long long n, long long tile, long long merge_size) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* sk = smem;
+  int* sv = (int*)(smem + kSortSlots);
+  const int tid = threadIdx.x;
+  const long long base = (long long)blockIdx.x * kSortSub;
+  SortChunk c;
+  c.local0 = (unsigned int)(base & (tile - 1));
+  c.tile_mask = (unsigned int)(tile - 1);
+  const long long a0 = base + (long long)tid * kSortRegs;
+  const bool inside = a0 < n;
+  if (merge_size) {
+    // layout B straight from device memory: consecutive threads,
+    // consecutive elements
+#pragma unroll
+    for (int r = 0; r < kSortRegs; ++r) {
+      c.k[r] = k[base + r * (kSortSub / kSortRegs) + tid];
+      c.v[r] = sign_flipped(v[base + r * (kSortSub / kSortRegs) + tid]);
+    }
+    c.steps_b((unsigned int)merge_size, kSortSub / 2, tid);
+    c.store_b(sk, sv, tid);
+    __syncthreads();
+    c.load_a(sk, sv, tid);
+    c.steps_a((unsigned int)merge_size, 256, tid);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kSortRegs / 4; ++q) {
+      const uint4 a = inside ? ((const uint4*)(k + a0))[q] : make_uint4(0, 0, 0, 0);
+      const int4 b = inside ? ((const int4*)(v + a0))[q] : make_int4(0, 0, 0, 0);
+      c.k[4 * q] = a.x, c.k[4 * q + 1] = a.y, c.k[4 * q + 2] = a.z,
+              c.k[4 * q + 3] = a.w;
+      c.v[4 * q] = sign_flipped(b.x), c.v[4 * q + 1] = sign_flipped(b.y),
+              c.v[4 * q + 2] = sign_flipped(b.z),
+              c.v[4 * q + 3] = sign_flipped(b.w);
+    }
+    const unsigned int top =
+        tile < kSortSub ? (unsigned int)tile : (unsigned int)kSortSub;
+    for (unsigned int size = 2; size <= top && size <= 512; size <<= 1) {
+      c.steps_a(size, (int)(size >> 1), tid);
+    }
+    for (unsigned int size = 1024; size <= top; size <<= 1) {
+      c.store_a(sk, sv, tid);
+      __syncthreads();
+      c.load_b(sk, sv, tid);
+      c.steps_b(size, (int)(size >> 1), tid);
+      c.store_b(sk, sv, tid);
+      __syncthreads();
+      c.load_a(sk, sv, tid);
+      c.steps_a(size, 256, tid);
+    }
+  }
+  if (inside) {
+#pragma unroll
+    for (int q = 0; q < kSortRegs / 4; ++q) {
+      ((uint4*)(ko + a0))[q] = make_uint4(c.k[4 * q], c.k[4 * q + 1],
+                                          c.k[4 * q + 2], c.k[4 * q + 3]);
+      ((int4*)(vo + a0))[q] =
+          make_int4(sign_flipped(c.v[4 * q]), sign_flipped(c.v[4 * q + 1]),
+                    sign_flipped(c.v[4 * q + 2]), sign_flipped(c.v[4 * q + 3]));
+    }
+  }
+}
+
+// The wide steps d = ROWS / 2 * d_lo .. d_lo (each >= kSortSub) of the merge
+// of runs of `size`, in place. A thread holds, for one offset c below d_lo,
+// the ROWS elements base + c + s * d_lo: every partner of every one of
+// those steps, so they all run in its registers; consecutive threads read
+// consecutive elements of each row. ROWS * d_lo <= size <= tile.
+template <int ROWS>
+__global__ void __launch_bounds__(256)
+bitonic_wide_kernel(uint32_t* k, int* v, long long nthreads,
+                    unsigned int tile_mask, unsigned int size, int log2_d_lo) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= nthreads) return;
+  const long long d_lo = 1ll << log2_d_lo;
+  const long long a0 = ((t >> log2_d_lo) * ROWS << log2_d_lo) | (t & (d_lo - 1));
+  // the rows differ in index bits below `size` only: one direction for all
+  const bool asc = (((unsigned int)a0 & tile_mask) & size) == 0;
+  uint32_t kk[ROWS];
+  int vv[ROWS];
+#pragma unroll
+  for (int s = 0; s < ROWS; ++s) {
+    kk[s] = k[a0 + s * d_lo];
+    vv[s] = v[a0 + s * d_lo];
+  }
+#pragma unroll
+  for (int ds = ROWS / 2; ds > 0; ds >>= 1) {
+#pragma unroll
+    for (int s = 0; s < ROWS; ++s) {
+      if ((s & ds) == 0) {
+        compare_exchange<false>(kk[s], vv[s], kk[s | ds], vv[s | ds], asc);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < ROWS; ++s) {
+    k[a0 + s * d_lo] = kk[s];
+    v[a0 + s * d_lo] = vv[s];
+  }
+}
+
+template <int ROWS>
+int launch_wide(void* k, void* v, long long n, long long tile,
+                long long size, int log2_d_lo, cudaStream_t s) {
+  const long long nthreads = n / ROWS;
+  const long long blocks = (nthreads + 255) / 256;
+  if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
+  bitonic_wide_kernel<ROWS><<<(unsigned int)blocks, 256, 0, s>>>(
+      (uint32_t*)k, (int*)v, nthreads, (unsigned int)(tile - 1),
+      (unsigned int)size, log2_d_lo);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -613,32 +871,61 @@ extern "C" int kt_probe_one_stage(const void* k, const void* v, void* ko,
                           (cudaStream_t)stream);
 }
 
-// P3: every tile of `tile` elements (a power of two >= 128 that divides n)
-// sorted ascending by (key, payload) into ko, vo
-extern "C" int kt_probe_tile_sort(const void* k, const void* v, void* ko,
-                                  void* vo, long long n, long long tile,
+// P3, one launch of its schedule (kiss_tpu_torch/experiments/
+// micro_kernels.py, tile_sort_schedule): the bitonic steps below kSortSub
+// inside every chunk of kSortSub elements of an array of n elements in
+// tiles of `tile` (a power of two >= 128 that divides n). merge_size 0:
+// every step of the sizes 2 .. min(tile, kSortSub); merge_size > kSortSub:
+// the steps d = kSortSub / 2 .. 1 of that merge. k, v -> ko, vo (may be the
+// same arrays).
+extern "C" int kt_probe_sort_local(const void* k, const void* v, void* ko,
+                                   void* vo, long long n, long long tile,
+                                   long long merge_size, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (merge_size && (merge_size <= kSortSub || merge_size > tile)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t bytes = (size_t)kSortSlots * 2 * sizeof(uint32_t);
+  DeviceFacts* d = nullptr;
+  cudaError_t err = device_facts(&d);
+  if (err != cudaSuccess) return (int)err;
+  if (!d->sort_local_ready) {
+    err = cudaFuncSetAttribute(bitonic_local_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    d->sort_local_ready = true;
+  }
+  const long long blocks = (n + kSortSub - 1) / kSortSub;
+  if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
+  bitonic_local_kernel<<<(unsigned int)blocks, kSortThreads, bytes,
+                         (cudaStream_t)stream>>>(
+      (const uint32_t*)k, (const int*)v, (uint32_t*)ko, (int*)vo, n, tile,
+      merge_size);
+  return (int)cudaGetLastError();
+}
+
+// P3, one launch of its schedule: the steps d = d_hi, d_hi / 2, .. d_lo
+// (powers of two, kSortSub <= d_lo <= d_hi < size <= tile, at most 5 steps)
+// of the merge of runs of `size`, in place, in the threads' registers.
+extern "C" int kt_probe_sort_wide(void* k, void* v, long long n,
+                                  long long tile, long long size,
+                                  long long d_hi, long long d_lo,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaGetLastError();
-  const int sub = tile < kSortSub ? (int)tile : kSortSub;
-  const int threads = sub / 2 < kSortThreads ? sub / 2 : kSortThreads;
-  const size_t bytes = (size_t)sub * 2 * sizeof(uint32_t);
-  const cudaError_t err = cudaFuncSetAttribute(
-      bitonic_local_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned int blocks = (unsigned int)(n / sub);
-  bitonic_local_kernel<<<blocks, threads, bytes, s>>>(
-      (const uint32_t*)k, (const int*)v, (uint32_t*)ko, (int*)vo, tile, sub,
-      0);
-  for (long long size = 2ll * sub; size <= tile; size <<= 1) {
-    for (long long d = size >> 1; d >= sub; d >>= 1) {
-      const int rc = launch_one_stage(ko, vo, ko, vo, n, tile, d, size >> 1, s);
-      if (rc != 0) return rc;
-    }
-    bitonic_local_kernel<<<blocks, threads, bytes, s>>>(
-        (const uint32_t*)ko, (const int*)vo, (uint32_t*)ko, (int*)vo, tile,
-        sub, size);
+  int log2_d_lo = 0;
+  while ((1ll << log2_d_lo) < d_lo) ++log2_d_lo;
+  if ((1ll << log2_d_lo) != d_lo || d_lo < kSortSub || d_hi < d_lo ||
+      2 * d_hi > size || size > tile) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  switch (2 * d_hi / d_lo) {
+    case 2: return launch_wide<2>(k, v, n, tile, size, log2_d_lo, s);
+    case 4: return launch_wide<4>(k, v, n, tile, size, log2_d_lo, s);
+    case 8: return launch_wide<8>(k, v, n, tile, size, log2_d_lo, s);
+    case 16: return launch_wide<16>(k, v, n, tile, size, log2_d_lo, s);
+    case 32: return launch_wide<32>(k, v, n, tile, size, log2_d_lo, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -37,6 +37,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -51,6 +52,10 @@ VEC = 4  # 32-bit elements per 16-byte vector
 COPY_LAUNCHES = 10
 # largest table the gather stages in a block's shared memory (227 KB)
 SHARED_TABLE_BYTES = 232_448
+# the in-tile sort (micro_probes.cu): elements of a chunk whose steps run
+# in one launch, and the most wide steps one launch runs in registers
+SORT_CHUNK = 8192
+WIDE_STEPS = 5
 
 
 # ------------------------------------------------------------------ helpers
@@ -249,10 +254,53 @@ def tile_sort_plain(k, v, rows):
     )
 
 
+class SortLaunch(NamedTuple):
+    """One launch of the in-tile sort: its kind (``local_full``: every
+    step of the sizes up to a chunk inside each chunk; ``wide``: steps
+    whose partners are a chunk or more apart, in registers; ``local_merge``:
+    the steps of one merge below a chunk) and the ``(size, d)``
+    compare-exchange steps it performs, in order."""
+
+    kind: str
+    steps: tuple
+
+
+def tile_sort_schedule(T: int) -> list:
+    """The launches that sort a tile of ``T`` elements (a power of two)
+    with the bitonic network ``for size = 2, 4 .. T: for d = size / 2 ..
+    1``, each launch one trip through device memory. Steps with ``d``
+    below ``SORT_CHUNK`` run inside chunks of that many elements; a merge
+    above it first runs its wider steps, at most ``WIDE_STEPS`` a launch."""
+    sub = min(T, SORT_CHUNK)
+
+    def steps(size, d_from, d_to):
+        out, d = [], d_from
+        while d >= d_to:
+            out.append((size, d))
+            d //= 2
+        return tuple(out)
+
+    full = []
+    size = 2
+    while size <= sub:
+        full.extend(steps(size, size // 2, 1))
+        size *= 2
+    launches = [SortLaunch("local_full", tuple(full))]
+    while size <= T:
+        wide = steps(size, size // 2, sub)
+        for i in range(0, len(wide), WIDE_STEPS):
+            launches.append(SortLaunch("wide", wide[i : i + WIDE_STEPS]))
+        launches.append(SortLaunch("local_merge", steps(size, sub // 2, 1)))
+        size *= 2
+    return launches
+
+
 def tile_sort(k, v, rows):
     """P3: every tile of ``T = rows * 128`` elements (``T`` a power of
     two) fully sorted ascending by (``k`` as unsigned 32 bits held in
-    int32, then ``v`` signed). Returns ``(k', v')``."""
+    int32, then ``v`` signed). Returns ``(k', v')``. On the card the
+    launches of :func:`tile_sort_schedule` run one after the other, the
+    first from the inputs into the outputs and the rest in place."""
     _pairs(k, v, rows, "tile_sort")
     T = rows * LANES
     if T & (T - 1):
@@ -261,13 +309,22 @@ def tile_sort(k, v, rows):
     if k.device.type == "cpu":
         return tile_sort_plain(k, v, rows)
     ko, vo = torch.empty_like(k), torch.empty_like(v)
-    kernels.check(
-        kernels.library().kt_probe_tile_sort(
-            k.data_ptr(), v.data_ptr(), ko.data_ptr(), vo.data_ptr(),
-            k.numel(), T, kernels.stream_of(k.device),
-        ),
-        "kt_probe_tile_sort",
-    )
+    lib, stream, n = kernels.library(), kernels.stream_of(k.device), k.numel()
+    for launch in tile_sort_schedule(T):
+        size = launch.steps[0][0]
+        if launch.kind == "wide":
+            rc = lib.kt_probe_sort_wide(
+                ko.data_ptr(), vo.data_ptr(), n, T, size, launch.steps[0][1],
+                launch.steps[-1][1], stream,
+            )
+        else:
+            full = launch.kind == "local_full"
+            src_k, src_v = (k, v) if full else (ko, vo)
+            rc = lib.kt_probe_sort_local(
+                src_k.data_ptr(), src_v.data_ptr(), ko.data_ptr(),
+                vo.data_ptr(), n, T, 0 if full else size, stream,
+            )
+        kernels.check(rc, f"tile_sort {launch.kind}")
     kernels.count_launch("tile_sort")
     return ko, vo
 

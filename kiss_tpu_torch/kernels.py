@@ -132,8 +132,12 @@ _L = ctypes.c_longlong
 _U = ctypes.c_uint
 _SIGNATURES = {
     "kt_radix_digit_counts": [_P, _I, _L, _P, _P],
-    "kt_radix_sort_pass": [_P, _P, _P, _P, _L, _I, _P, _P, _P],
-    "kt_gather_words": [_P, _I, _L, _P, _P, _P],
+    "kt_radix_tile_keys": [],
+    "kt_radix_onesweep_pass": [
+        _P, _P, _P, _P, _L, _I, _P, _P, _P, _L, _P, _P,
+    ],
+    "kt_gather_words": [_P, _I, _L, _P, _U, _U, _P, _I, _P, _P],
+    "kt_gather_rows4": [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P],
     "kt_fm_backward_search": [
         _P, _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P,
     ],
@@ -145,7 +149,8 @@ _SIGNATURES = {
     "kt_probe_copy_2d": [_P, _P, _L, _L, _P],
     "kt_probe_gather": [_P, _I, _P, _P, _L, _L, _I, _P],
     "kt_probe_one_stage": [_P, _P, _P, _P, _L, _L, _L, _L, _P],
-    "kt_probe_tile_sort": [_P, _P, _P, _P, _L, _L, _P],
+    "kt_probe_sort_local": [_P, _P, _P, _P, _L, _L, _L, _P],
+    "kt_probe_sort_wide": [_P, _P, _L, _L, _L, _L, _L, _P],
 }
 
 

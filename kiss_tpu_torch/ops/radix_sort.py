@@ -15,13 +15,51 @@ On a CUDA tensor the wrapper launches the hand-written LSD radix sort in
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
 from kiss_tpu_torch import kernels
 from kiss_tpu_torch.ops.pack import as_u32
 
 MAX_WORDS = 9
-_TILE = 4096  # keys per tile in radix_sort.cu (256 threads x 16 items)
+_STATUS_SPARE = 64  # 64-bit slots after the tile status: a ticket a pass
+
+
+class DigitPass(NamedTuple):
+    """One 8-bit pass of the LSD sort: byte ``byte`` (0 = least
+    significant) of key word ``word``. ``next_word`` is the word whose
+    values this pass writes in place of its sorted keys, gathered into the
+    new order: set on the last pass of a word when another word follows."""
+
+    word: int
+    byte: int
+    next_word: Optional[int]
+
+
+def pass_plan(counts, n: int) -> list:
+    """The digit passes a sort of ``n`` keys needs, in order, from the
+    digit counts ``counts[w][b][d]`` (the number of keys whose byte ``b``
+    of word ``w`` is ``d``). A byte whose keys all share one digit needs
+    no pass; a word with no pass left is never touched. Words go least
+    significant (last) first, bytes low to high. An empty plan means the
+    keys are all equal and the sort is the identity."""
+    counts = np.asarray(counts)
+    W = counts.shape[0]
+    if n == 0:
+        return []
+    words = []
+    for w in reversed(range(W)):
+        live = [b for b in range(4) if int(counts[w, b].max()) != n]
+        if live:
+            words.append((w, live))
+    plan = []
+    for i, (w, live) in enumerate(words):
+        following = words[i + 1][0] if i + 1 < len(words) else None
+        for b in live:
+            plan.append(DigitPass(w, b, following if b == live[-1] else None))
+    return plan
 
 
 def radix_sort_words_plain(keys: torch.Tensor):
@@ -52,71 +90,91 @@ def radix_sort_words(keys: torch.Tensor):
     return _radix_sort_words_cuda(keys)
 
 
+def digit_counts_cuda(keys: torch.Tensor) -> torch.Tensor:
+    """``counts[w, b, d]`` of a CUDA key set (int32 [W, 4, 256], on the
+    card): one kernel over all W words. Input of :func:`pass_plan` and the
+    digit totals of every pass."""
+    W, N = keys.shape
+    counts = torch.empty((W, 4, 256), dtype=torch.int32, device=keys.device)
+    kernels.check(
+        kernels.library().kt_radix_digit_counts(
+            keys.data_ptr(), W, N, counts.data_ptr(),
+            kernels.stream_of(keys.device),
+        ),
+        "kt_radix_digit_counts",
+    )
+    return counts
+
+
 def _radix_sort_words_cuda(keys: torch.Tensor):
-    """Host side of radix_sort.cu: least significant word first, each
-    word gathered into the current order and sorted by its non-constant
-    bytes while carrying a 32-bit index; all words gathered at the end."""
+    """Host side of radix_sort.cu: the digit counts decide the plan (one
+    download a sort); then one kernel a pass, the (key, index) pair
+    alternating between two buffers; the last pass of a word brings in the
+    next word; one gather at the end orders all W words."""
     W, N = keys.shape
     dev = keys.device
     if N == 0:
         return keys.clone(), torch.empty(0, dtype=torch.int64, device=dev)
     lib = kernels.library()
     stream = kernels.stream_of(dev)
-    # one pass over the keys counts every (word, byte) digit; a byte whose
-    # digits all fall in one bucket needs no scatter pass
-    counts = torch.empty((W, 4, 256), dtype=torch.int32, device=dev)
-    kernels.check(
-        lib.kt_radix_digit_counts(
-            keys.data_ptr(), W, N, counts.data_ptr(), stream
-        ),
-        "kt_radix_digit_counts",
-    )
+    counts = digit_counts_cuda(keys)
     kernels.count_launch("radix_sort_words")
-    full = (counts.amax(dim=2) == N).cpu()
-    plan = [
-        (w, [b for b in range(4) if not bool(full[w, b])])
-        for w in reversed(range(W))
-    ]
-    plan = [(w, bs) for w, bs in plan if bs]
+    plan = pass_plan(counts.cpu().numpy(), N)
     if not plan:
         return keys.clone(), torch.arange(N, dtype=torch.int64, device=dev)
-    tiles = -(-N // _TILE)
-    tile_hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
+    tile = lib.kt_radix_tile_keys()
+    tiles = -(-N // tile)
+    # per (tile, digit) status words, then a ticket counter for each pass
+    status = torch.zeros(tiles * 256 + _STATUS_SPARE, dtype=torch.int64,
+                         device=dev)
     key_bufs = [torch.empty(N, dtype=torch.int32, device=dev)
                 for _ in range(2)]
     idx_bufs = [torch.empty(N, dtype=torch.int32, device=dev)
                 for _ in range(2)]
-    gathered = torch.empty(N, dtype=torch.int32, device=dev)
-    idx, j = None, 0
-    for w, byte_ids in plan:
-        if idx is None:  # identity order: the word as it is
-            src_k = keys[w]
-        else:
-            kernels.check(
-                lib.kt_gather_words(keys[w].data_ptr(), 1, N, idx.data_ptr(),
-                                    gathered.data_ptr(), stream),
-                "kt_gather_words",
-            )
-            src_k = gathered
-        src_i = idx
-        for b in byte_ids:
-            dst_k, dst_i = key_bufs[j % 2], idx_bufs[j % 2]
-            j += 1
-            kernels.check(
-                lib.kt_radix_sort_pass(
-                    src_k.data_ptr(),
-                    None if src_i is None else src_i.data_ptr(),
-                    dst_k.data_ptr(), dst_i.data_ptr(), N, 8 * b,
-                    tile_hist.data_ptr(), counts[w, b].data_ptr(), stream,
-                ),
-                "kt_radix_sort_pass",
-            )
-            src_k, src_i = dst_k, dst_i
-        idx = src_i
+    src_k, src_i = keys[plan[0].word], None  # identity order: the word itself
+    for j, p in enumerate(plan):
+        dst_k, dst_i = key_bufs[j % 2], idx_bufs[j % 2]
+        kernels.check(
+            lib.kt_radix_onesweep_pass(
+                src_k.data_ptr(),
+                None if src_i is None else src_i.data_ptr(),
+                dst_k.data_ptr(), dst_i.data_ptr(), N, 8 * p.byte,
+                counts[p.word, p.byte].data_ptr(), status.data_ptr(),
+                status.data_ptr() + 8 * (tiles * 256 + j), j + 1,
+                None if p.next_word is None
+                else keys[p.next_word].data_ptr(),
+                stream,
+            ),
+            "kt_radix_onesweep_pass",
+        )
+        src_k, src_i = dst_k, dst_i
+    # the last sorted word is in order in src_k; words that had no pass are
+    # constant; the others are gathered through the final index, four at a
+    # time by way of 16-byte entries (a single left-over word directly)
+    top = plan[-1].word
+    gathered = sorted({p.word for p in plan} - {top})
+    groups = [gathered[i : i + 4] for i in range(0, len(gathered), 4)]
+    direct = groups.pop() if groups and len(groups[-1]) == 1 else []
+    del key_bufs, idx_bufs, dst_k, dst_i  # the spare pair makes room
     out = torch.empty_like(keys)
     kernels.check(
-        lib.kt_gather_words(keys.data_ptr(), W, N, idx.data_ptr(),
-                            out.data_ptr(), stream),
+        lib.kt_gather_words(
+            keys.data_ptr(), W, N, src_i.data_ptr(),
+            sum(1 << w for w in direct),
+            sum(1 << w for group in groups for w in group),
+            src_k.data_ptr(), top, out.data_ptr(), stream,
+        ),
         "kt_gather_words",
     )
-    return out, idx.to(torch.int64)
+    if groups:
+        rows4 = torch.empty((N, 4), dtype=torch.int32, device=dev)
+        for group in groups:
+            rows = group + [-1] * (4 - len(group))
+            kernels.check(
+                lib.kt_gather_rows4(keys.data_ptr(), N, src_i.data_ptr(),
+                                    *rows, rows4.data_ptr(), out.data_ptr(),
+                                    stream),
+                "kt_gather_rows4",
+            )
+        del rows4  # before the 64-bit permutation is made
+    return out, src_i.to(torch.int64)

@@ -41,18 +41,74 @@ def _words(rng, w, n, high=2**32):
     return torch.from_numpy(keys.astype(np.uint32).view(np.int32))
 
 
+# The pass kernel's tile is 8192 keys (512 threads x 16): N on both sides
+# of one tile and of two, and many tiles.
+RADIX_TILE = 8192
+
+
+def _edge_words(kind, w, n, seed):
+    """Key sets that stress the pass kernel: ``random`` (all 32 bits),
+    ``small`` (values below 4: long runs of ties), ``equal`` (no pass at
+    all), ``two`` (two distinct keys), ``all_but_one`` (one digit holds
+    every key but one), ``middle_byte`` (only byte 1 of the middle word
+    varies), ``skip_word`` (a constant word between two sorted ones)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return _words(rng, w, n)
+    if kind == "small":
+        return _words(rng, w, n, 4)
+    keys = np.full((w, n), 0x01020304, dtype=np.uint32)
+    if kind == "two":
+        keys[:, rng.random(n) < 0.5] = 0xFFFFFFFF
+    elif kind == "all_but_one":
+        keys[:, n // 2] = 0
+    elif kind == "middle_byte":
+        keys[w // 2] = 0x01020004 | (
+            rng.integers(0, 256, n).astype(np.uint32) << 8
+        )
+    elif kind == "skip_word":
+        keys[0] = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        keys[-1] = rng.integers(0, 2**16, n).astype(np.uint32)
+    else:
+        assert kind == "equal"
+    return torch.from_numpy(keys.view(np.int32))
+
+
 @pytest.mark.parametrize(
-    "w,n,high",
-    [(1, 1, 2**32), (1, 4097, 2**32), (5, 2049, 2**32), (8, 100_003, 2**32),
-     (9, 70_000, 2**32), (5, 50_000, 4), (3, 40_000, 1)],
+    "kind,w,n",
+    [("random", 1, 1), ("random", 1, 4097), ("random", 5, 2049),
+     ("random", 8, 100_003), ("random", 9, 70_000), ("small", 5, 50_000),
+     ("equal", 3, 40_000), ("equal", 1, 1), ("two", 5, 30_000),
+     ("two", 1, RADIX_TILE + 1), ("all_but_one", 5, 3 * RADIX_TILE),
+     ("all_but_one", 8, RADIX_TILE), ("middle_byte", 5, 50_000),
+     ("skip_word", 3, 50_000), ("skip_word", 9, 20_000),
+     ("random", 5, RADIX_TILE - 1), ("random", 5, RADIX_TILE),
+     ("random", 5, RADIX_TILE + 1), ("small", 8, 2 * RADIX_TILE - 1),
+     ("small", 8, 2 * RADIX_TILE), ("small", 8, 2 * RADIX_TILE + 1),
+     ("random", 1, 2), ("random", 8, 1_000_003), ("small", 9, 3_000_001),
+     ("random", 5, 6_000_000)],
 )
-def test_radix_sort_words_matches_plain(cuda, w, n, high):
-    keys = _words(np.random.default_rng(n + w), w, n, high).to(cuda)
+def test_radix_sort_words_matches_plain(cuda, kind, w, n):
+    keys = _edge_words(kind, w, n, n + w).to(cuda)
     got_k, got_p = radix_sort_words(keys)
     want_k, want_p = radix_sort_words_plain(keys)
     torch.cuda.synchronize()
     assert torch.equal(got_p, want_p)  # stable: the identical permutation
     assert torch.equal(got_k, want_k)
+
+
+def test_radix_sort_words_200_calls_on_two_tiles(cuda):
+    """A fault in the look-back between tiles shows as a rare wrong
+    answer, not a steady one: 200 sorts in a row of inputs of two tiles
+    (and of three with a short last one), each held to the plain version."""
+    for call in range(200):
+        n = 2 * RADIX_TILE if call % 2 else 2 * RADIX_TILE + 1 + call
+        keys = _edge_words("small" if call % 3 else "random", 2, n,
+                           call).to(cuda)
+        got_k, got_p = radix_sort_words(keys)
+        want_k, want_p = radix_sort_words_plain(keys)
+        assert torch.equal(got_p, want_p), call
+        assert torch.equal(got_k, want_k), call
 
 
 def test_radix_sort_words_stable_payload(cuda):
@@ -190,8 +246,12 @@ def test_one_stage_matches_plain(cuda, R, rows, d, stage_d, high):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("R,rows", [(16, 1), (64, 16), (512, 64), (1024, 256),
-                                    (4096, 2048)])
+# T = rows * 128: below a chunk of 8192 elements (128, 2K), one chunk (8K),
+# the first sizes that take the wide kernel (16K: one step; 32K), its full
+# 5 steps (256K), and two wide launches a merge (512K, 1M).
+@pytest.mark.parametrize("R,rows", [(16, 1), (3, 1), (64, 16), (512, 64),
+                                    (256, 128), (1024, 256), (4096, 2048),
+                                    (8192, 4096), (16384, 8192)])
 @pytest.mark.parametrize("high", [2**32, 4])
 def test_tile_sort_matches_plain(cuda, R, rows, high):
     k, v = _probe_pair(cuda, R, rows, high)
