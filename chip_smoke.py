@@ -44,7 +44,12 @@ exits non-zero and prints no result line):
      turns;
   9. step times of the main path and of the plain versions at the same
      shapes, K1 also at a tail-refinement shape (W = 8, N = 1,048,576);
-     the two sorts K1 and P3 split by device kernel (``torch.profiler``);
+     K2 and K3 timed alone (``experiments.fm_query_time``) at a CLI chunk,
+     the whole batch, the ``-q`` rows and 1M random rows, each output held
+     to the plain version, with the 32-byte sectors each table layout
+     reads and their rate, and launches x (time - bound) at the shapes the
+     main path launches; the two sorts K1 and P3 split by device kernel
+     (``torch.profiler``);
      then one JSON line with each kernel's launches, error,
      times and bound, and as the last line ``{"ok": true, "device":
      {...}}``.
@@ -72,12 +77,6 @@ CLI_CHUNK = 100_000  # queries per batch_query_stats call of ``-b``
 N_PROBE = 48_758_784  # elements per probe operand: 186 tiles of 2048 x 128
 PROBE_ROWS = 2048
 PROBE_REPS = 50  # launches per timing of a probe kernel
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet). The sheet gives no
-# rate for 32-bit integer arithmetic outside the tensor cores; Hopper runs
-# it on half of the lanes that give the sheet's 67 TFLOP/s in float32.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS_PER_S = 67e12 / 2
 
 KERNELS = {
     "radix_sort_words": (
@@ -227,23 +226,26 @@ def phase_kernels(torch, np, err):
             pack.np_pack_queries_2bit(pats).view(np.int32)
         ).to(dev)
         for L in (0, 8):
-            got = fm.get_range_packed_device(idx[L].arrays, qw, qlen, L)
+            got = fm.get_range_packed_device(idx[L].arrays, qw, qlen, L,
+                                             blocks=idx[L].blocks)
             want = fm.get_range_packed_device_plain(idx[L].arrays, qw, qlen,
                                                     L)
             for g, w in zip(got, want):
                 err["fm_backward_search"] = max(
                     err["fm_backward_search"], exact(g, w)
                 )
-        arrays = idx[0].arrays
-        beg, end, _ = fm.get_range_packed_device(arrays, qw, qlen, 0)
+        arrays, blocks = idx[0].arrays, idx[0].blocks
+        beg, end, _ = fm.get_range_packed_device(arrays, qw, qlen, 0,
+                                                 blocks=blocks)
         err["fm_locate_stats"] = max(
             err["fm_locate_stats"],
-            exact(fm.batch_locate_stats_device(arrays, beg, end, 4),
+            exact(fm.batch_locate_stats_device(arrays, beg, end, 4,
+                                               blocks=blocks),
                   fm.batch_locate_stats_device_plain(arrays, beg, end, 4)),
         )
     rows = torch.from_numpy(rng.integers(0, N, nq)).to(dev)
     err["fm_locate_rows"] = exact(
-        fm.locate_rows_device(idx[0].arrays, rows, 4),
+        fm.locate_rows_device(idx[0].arrays, rows, 4, blocks=idx[0].blocks),
         fm.locate_rows_device_plain(idx[0].arrays, rows, 4),
     )
     torch.cuda.synchronize()
@@ -347,17 +349,6 @@ def check_k_sorted_sample(torch, text_dev, sa, k: int, samples: int):
     check(bool(ok.all()), "k=256 SA sample out of order")
 
 
-def bound_ms(bytes_moved: float, int_ops: float):
-    """(least milliseconds the card could take, what bounds it): the
-    larger of the bytes over the memory rate and the integer operations
-    over the integer rate."""
-    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    by_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
-    if by_bytes >= by_ops:
-        return by_bytes, "bytes"
-    return by_ops, "operations"
-
-
 def phase_probe_path(torch, kernels):
     """The probe entry points as a user runs them, counters reset just
     before and read just after."""
@@ -383,6 +374,7 @@ def phase_probes(torch, smi, err, ms, plain_ms, library_ms, bounds):
 
     from kiss_tpu_torch.experiments import micro_copy as mc
     from kiss_tpu_torch.experiments import micro_kernels as mk
+    from kiss_tpu_torch.utils.roofline import bound_ms
 
     dev = torch.device("cuda")
     n, rows = N_PROBE, PROBE_ROWS
@@ -497,8 +489,10 @@ def main() -> int:
 
     sys.path.insert(0, ROOT)
     from kiss_tpu_torch import cli, kernels
+    from kiss_tpu_torch.experiments import fm_query_time
     from kiss_tpu_torch.experiments import micro_kernels as mk
     from kiss_tpu_torch.experiments import sort_split
+    from kiss_tpu_torch.utils.roofline import bound_ms
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
     from kiss_tpu_torch.ops.radix_sort import (
@@ -610,7 +604,7 @@ def main() -> int:
     fmi = fm.FMIndex(sa_intv=4, device=dev)
     with open(fa + ".fmi", "rb") as f:
         fmi.load(f)
-    arrays, L = fmi.arrays, fmi.lookup_len
+    arrays, blocks, L = fmi.arrays, fmi.blocks, fmi.lookup_len
     qw = torch.from_numpy(pack.np_pack_queries_2bit(pats).view(np.int32)).to(
         dev
     )
@@ -635,13 +629,14 @@ def main() -> int:
         sort_with(compared_sort, k)
 
     def compare_ranges(q):
-        got = fm.get_range_packed_device(arrays, q, QLEN, L)
+        got = fm.get_range_packed_device(arrays, q, QLEN, L, blocks=blocks)
         want = fm.get_range_packed_device_plain(arrays, q, QLEN, L)
         for g, w in zip(got, want):
             err["fm_backward_search"] = max(
                 err["fm_backward_search"], exact(g, w)
             )
-        stats = fm.batch_locate_stats_device(arrays, got[0], got[1], 4)
+        stats = fm.batch_locate_stats_device(arrays, got[0], got[1], 4,
+                                             blocks=blocks)
         err["fm_locate_stats"] = max(
             err["fm_locate_stats"],
             exact(stats, fm.batch_locate_stats_device_plain(
@@ -656,9 +651,9 @@ def main() -> int:
     ]
     check(tuple(map(sum, zip(*chunk_stats))) == (occ, checksum),
           "the chunks' kernel stats do not add up to the CLI's")
-    (beg, end, offs), _ = compare_ranges(qw)  # the whole batch, as timed below
+    (beg, end, _), _ = compare_ranges(qw)  # the whole batch
     qb, qe, _ = fm.get_range_device(
-        arrays, codec.to_istring(q_pattern)[None, :], L
+        arrays, codec.to_istring(q_pattern)[None, :], L, blocks=blocks
     )
     rows = torch.arange(int(qb[0]), int(qe[0]), device=dev)
     g = torch.Generator(device=dev).manual_seed(7)
@@ -667,7 +662,7 @@ def main() -> int:
     for r in (rows, rand_rows):
         err["fm_locate_rows"] = max(
             err["fm_locate_rows"],
-            exact(fm.locate_rows_device(arrays, r, 4),
+            exact(fm.locate_rows_device(arrays, r, 4, blocks=blocks),
                   fm.locate_rows_device_plain(arrays, r, 4)),
         )
     torch.cuda.synchronize()
@@ -726,7 +721,9 @@ def main() -> int:
     bfs_launches = dict(kernels.LAUNCHES)
     logging.getLogger().removeHandler(logs)
     walk_rows = torch.arange(int(beg[qi]), int(end[qi]), device=dev)
-    walked = sorted(fm.locate_rows_device(arrays, walk_rows, 4).tolist())
+    walked = sorted(
+        fm.locate_rows_device(arrays, walk_rows, 4, blocks=blocks).tolist()
+    )
     check(found32 == int(lens[qi]) and shown32 == walked,
           "BFS -q positions differ from the full index's per-row walk")
     check(bfs_launches["radix_sort_words"] > 0
@@ -750,7 +747,8 @@ def main() -> int:
                              pf[np.lexsort((pf, qid))]),
           "batch_query by the BFS differs from the per-row walk")
     b32, e32, _ = fm.get_range_packed_device(fmi32.arrays, qw, QLEN,
-                                             fmi32.lookup_len)
+                                             fmi32.lookup_len,
+                                             blocks=fmi32.blocks)
     check(fm.batch_bfs_stats_device(fmi32.arrays, b32, e32, 4)
           == (occ, checksum), "BFS stats of the whole batch")
     bfs_ms = cuda_ms(
@@ -794,11 +792,13 @@ def main() -> int:
     plain_ms["radix_sort_words"] = cuda_ms(
         lambda: radix_sort_words_plain(w5), 3
     )
-    # K1 bound: the W key words read and written once, the permutation
-    # written (8 bytes a key); one digit step per key byte
-    bounds["radix_sort_words"] = bound_ms(
-        2 * w5.numel() * 4 + 8 * w5.shape[1], w5.numel() * 4
-    )
+    def k1_bound(keys):
+        """K1 bound: the W key words read and written once, the
+        permutation written (8 bytes a key); one digit step per key byte"""
+        return bound_ms(2 * keys.numel() * 4 + 8 * keys.shape[1],
+                        keys.numel() * 4)
+
+    bounds["radix_sort_words"] = k1_bound(w5)
     passes5 = sort_split.digit_passes(w5)
     # beside the bound: what an 8-bit LSD sort of these keys must move, a
     # (key, index) pair read and written in every pass, at the rate
@@ -814,58 +814,51 @@ def main() -> int:
     del got, want
     tail_ms = (cuda_ms(lambda: radix_sort_words(w8), 5),
                cuda_ms(lambda: radix_sort_words_plain(w8), 3))
+    tail_bound = k1_bound(w8)
     del w8
     say(f"K1 on {smi}: seed sort {ms['radix_sort_words']:.3f} ms (plain "
         f"{plain_ms['radix_sort_words']:.3f}), bound "
         f"{bounds['radix_sort_words'][0]:.3f}, floor of an 8-bit LSD sort of "
         f"its {passes5} passes at x.clone()'s {clone_bytes_per_s / 1e12:.2f} TB/s "
         f"{lsd_floor_ms:.3f}; tail shape W={tail_shape[0]} N={tail_shape[1]} "
-        f"{tail_ms[0]:.3f} ms (plain {tail_ms[1]:.3f})")
-    ms["fm_backward_search"] = cuda_ms(
-        lambda: fm.get_range_packed_device(arrays, qw, QLEN, L), 10
-    )
+        f"{tail_ms[0]:.3f} ms (plain {tail_ms[1]:.3f}), bound "
+        f"{tail_bound[0]:.5f} ({tail_bound[1]})")
+    # K2 and K3 alone at the shapes the main path launches them (a CLI
+    # chunk, the whole batch, the -q rows) and at 1M random rows, with the
+    # sectors each table layout reads, their rates and the bounds
+    check(L == 0, "the CLI's index has no lookup table")
+    split = fm_query_time.measure(fmi, qw, rows, rand_rows, CLI_CHUNK, smi,
+                                  say=say)
+    chunk, batch = f"chunk {CLI_CHUNK}", f"batch {N_QUERIES}"
+    q_shape = f"-q rows {rows.shape[0]}"
+    for name, shape in (("fm_backward_search", batch),
+                        ("fm_locate_stats", batch),
+                        ("fm_locate_rows", q_shape)):
+        ms[name] = split[(name, shape)]["ms"]
+        bounds[name] = split[(name, shape)]["bound"]
     plain_ms["fm_backward_search"] = cuda_ms(
         lambda: fm.get_range_packed_device_plain(arrays, qw, QLEN, L), 3
-    )
-    ms["fm_locate_stats"] = cuda_ms(
-        lambda: fm.batch_locate_stats_device(arrays, beg, end, 4), 10
     )
     plain_ms["fm_locate_stats"] = cuda_ms(
         lambda: fm.batch_locate_stats_device_plain(arrays, beg, end, 4), 3
     )
-    ms["fm_locate_rows"] = cuda_ms(
-        lambda: fm.locate_rows_device(arrays, rows, 4), 20
-    )
     plain_ms["fm_locate_rows"] = cuda_ms(
         lambda: fm.locate_rows_device_plain(arrays, rows, 4), 20
     )
-    # K2 and K3 bounds count what this run's data needs: the LF steps the
-    # queries really take (early stop) and the walk steps the rows really
-    # take (a row at text position p walks p % sa_intv steps), one 20-byte
-    # lf_tab row per step and bound, one 12-byte b_tab row per mark probe,
-    # 8 bytes per sa_samp read -- but no table counted beyond its size,
-    # since each input byte counts once
-    def table_bytes(lf_rows, b_rows, samp_reads):
-        return (min(arrays.lf_tab.numel() * 4, lf_rows * 20)
-                + min(arrays.b_tab.numel() * 4, b_rows * 12)
-                + min(arrays.sa_samp.numel() * 8, samp_reads * 8))
-
-    lf_steps = int(((QLEN - L if L and QLEN >= L else QLEN) - offs).sum())
-    bounds["fm_backward_search"] = bound_ms(
-        qw.numel() * 4 + 24 * N_QUERIES + table_bytes(2 * lf_steps, 0, 0),
-        2 * lf_steps * 16,  # about 16 integer operations per LF
-    )
-    for name, pos, io_bytes in (
-        ("fm_locate_stats", fm.bfs_locate_device(arrays, beg, end, 4),
-         16 * N_QUERIES + 8),
-        ("fm_locate_rows", fm.locate_rows_device(arrays, rows, 4),
-         16 * rows.shape[0]),
-    ):
-        walk = int((pos % 4).sum())
-        bounds[name] = bound_ms(
-            io_bytes + table_bytes(walk, walk + pos.shape[0], pos.shape[0]),
-            walk * 16 + pos.shape[0] * 8,
-        )
+    # what the main path spends over the bounds, at the shape it launches:
+    # K2 and K3 stats once a 100,000-query chunk (K2 once more for -q's one
+    # pattern, counted here at the chunk's gap), K3 rows once for -q
+    over = {
+        name: (launches[name], split[(name, shape)]["ms"],
+               split[(name, shape)]["bound"][0])
+        for name, shape in (("fm_backward_search", chunk),
+                            ("fm_locate_stats", chunk),
+                            ("fm_locate_rows", q_shape))
+    }
+    say(f"K2/K3 launches x (time - bound) at the main path's shapes on "
+        f"{smi}: " + "; ".join(
+            f"{name} {n} x ({t:.4f} - {b:.4f}) = {n * (t - b):.4f} ms"
+            for name, (n, t, b) in over.items()))
     for name in bounds:
         library_ms.setdefault(name, None)  # K1-K3: no one PyTorch call
     times["query counts (1M x 25, K2)"] = (

@@ -1,23 +1,27 @@
 // K2: fm_backward_search -- batched backward search over 2-bit packed
-// patterns.
+// patterns, on the block table (fm_common.cuh).
 //
 // Replaces: get_range_packed_device (kiss_tpu/models/fm_index.py:443-497)
 //   with _lf / _occ / _sel4 (:278-307) and pack.count_symbol_prefix
 //   (kiss_tpu/ops/pack.py:201-219). Also serves counts_packed_device and
 //   FMIndex._build_lookup (early_stop = 0).
 //
-// What bounds it on the H100: dependent random reads. Each LF step of a
-//   query reads one 20-byte lf_tab row per range bound at an address that
-//   depends on the previous step, so a query is a chain of qlen latency-
-//   bound loads into a table of N/16 rows (61 MB at N = 48.8M, about the
-//   size of the 50 MB L2). Arithmetic is a few integer ops and a __popc.
+// What bounds it on the H100: the L2's rate of random 32-byte sectors.
+//   Each LF step of a query reads, for each range bound, the block-table
+//   entry of the bound's row at an address that depends on the step
+//   before. At 1M queries the card holds enough chains in flight that the
+//   sector rate, not one chain's latency, sets the time; at the CLI's
+//   100,000-query chunk every query is resident at once and the chains'
+//   latency shows too.
 //
-// What the simple design does about it: one thread per query, so the
-//   card hides the latency of each chain behind many queries in flight
-//   (1M queries are 7,800 blocks of 128 threads); the occ counts and the
-//   BWT word of a 16-row block share one lf_tab row, so a bound costs one
-//   row read per step; dead ranges stop early (early_stop), as the
-//   reference's compute_range does.
+// What the design does about it: one thread per query; a step reads one
+//   aligned 32-byte entry per bound, with two 16-byte non-coherent loads,
+//   and one entry for both bounds when they fall in the same 64-row block
+//   (usual once a 25-mer's range has narrowed), and one superblock read
+//   when they fall in the same superblock; the table (24.4 MB at
+//   N = 48.8M) stays in L2. Blocks of 64 threads, so the 1,563 blocks of a
+//   100,000-query chunk spread evenly over the 132 SMs. Dead ranges stop
+//   early (early_stop), as the reference's compute_range does.
 //
 // Pattern symbol j of query q is (qwords[q * qw + j / 16] >> 2 (j % 16)) & 3.
 
@@ -28,17 +32,19 @@
 
 namespace {
 
+constexpr int kThreads = 64;
+
 __device__ __forceinline__ int symbol_at(const uint32_t* w, int j) {
   return (int)((w[j >> 4] >> (2 * (j & 15))) & 3u);
 }
 
-__global__ void backward_search_kernel(
-    const uint32_t* __restrict__ lf_tab, const long long* __restrict__ cnt,
-    const long long* __restrict__ pri_p, const long long* __restrict__ lookup,
-    long long lookup_n, const uint32_t* __restrict__ qwords, long long nq,
-    int qw, int qlen, int lookup_len, int early_stop,
-    long long* __restrict__ beg_out, long long* __restrict__ end_out,
-    long long* __restrict__ offs_out) {
+__global__ void __launch_bounds__(kThreads) backward_search_kernel(
+    const uint4* __restrict__ blk, const long long* __restrict__ sup,
+    const long long* __restrict__ pri_p,
+    const long long* __restrict__ lookup, long long lookup_n,
+    const uint32_t* __restrict__ qwords, long long nq, int qw, int qlen,
+    int lookup_len, int early_stop, long long* __restrict__ beg_out,
+    long long* __restrict__ end_out, long long* __restrict__ offs_out) {
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= nq) return;
   const long long pri = *pri_p;
@@ -60,8 +66,16 @@ __global__ void backward_search_kernel(
   for (int j = steps - 1; j >= 0; --j) {
     if (early_stop && e <= b) break;
     const int c = symbol_at(w, j);
-    b = fm::lf(lf_tab, cnt, pri, c, b);
-    e = fm::lf(lf_tab, cnt, pri, c, e);
+    const fm::Entry eb = fm::load_entry(blk, b);
+    const fm::Entry ee = ((b ^ e) >> fm::kBlockShift) == 0
+                             ? eb
+                             : fm::load_entry(blk, e);
+    const long long sb = fm::lf_super(sup, c, b);
+    const long long se = ((b ^ e) >> fm::kSuperShift) == 0
+                             ? sb
+                             : fm::lf_super(sup, c, e);
+    b = sb + fm::lf_in_super(eb, pri, c, b);
+    e = se + fm::lf_in_super(ee, pri, c, e);
     offs = j;
   }
   beg_out[q] = b;
@@ -72,19 +86,18 @@ __global__ void backward_search_kernel(
 }  // namespace
 
 extern "C" int kt_fm_backward_search(
-    const void* lf_tab, const void* cnt, const void* pri, const void* lookup,
+    const void* blk, const void* sup, const void* pri, const void* lookup,
     long long lookup_n, const void* qwords, long long nq, int qw, int qlen,
     int lookup_len, int early_stop, void* beg, void* end, void* offs,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = 128;
-  const long long blocks = (nq + threads - 1) / threads;
+  const long long blocks = (nq + kThreads - 1) / kThreads;
   if (blocks > 0) {
-    backward_search_kernel<<<(unsigned int)blocks, threads, 0, s>>>(
-        (const uint32_t*)lf_tab, (const long long*)cnt, (const long long*)pri,
-        (const long long*)lookup, lookup_n, (const uint32_t*)qwords, nq, qw,
-        qlen, lookup_len, early_stop, (long long*)beg, (long long*)end,
-        (long long*)offs);
+    backward_search_kernel<<<(unsigned int)blocks, kThreads, 0, s>>>(
+        (const uint4*)blk, (const long long*)sup, (const long long*)pri,
+        (const long long*)lookup, lookup_n,
+        (const uint32_t*)qwords, nq, qw, qlen, lookup_len, early_stop,
+        (long long*)beg, (long long*)end, (long long*)offs);
   }
   return (int)cudaGetLastError();
 }

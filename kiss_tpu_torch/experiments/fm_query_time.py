@@ -1,0 +1,400 @@
+"""K2 ``fm_backward_search`` and K3 ``fm_locate_stats`` / ``fm_locate_rows``
+timed alone at the shapes the main path launches them, beside the 32-byte
+sectors each table layout must read for this run's inputs.
+
+Shapes, over the index of the 48,800,648-character synthetic genome
+(``utils.synth``): one CLI chunk of ``fmindex_query -b`` (100,000 patterns
+of length 25, the shape the main path launches ten times), the whole
+1,000,000-pattern batch, the rows of the ``-q`` pattern (the batch's first)
+and 1,000,000 random rows.
+
+Each kernel is timed by CUDA events over ``REPS`` launches in a row, each
+launch a direct call of the library's entry point with every input
+prepared beforehand (outputs allocated, the range starts computed): no
+Python wrapper runs and nothing is downloaded inside the window. K3 stats
+is also timed as the CLI calls it, ``batch_locate_stats_device`` with its
+download, by the host's clock, on a line of its own.
+
+Sectors: the unique (query or row, step, 32-byte sector) reads of the
+index tables that this run's LF steps and walk steps make, replayed with
+the plain versions, for two layouts: ``lf_tab``/``b_tab`` (a 20-byte row
+per 16 rows, a 12-byte row per 64) and the block table (one aligned
+32-byte entry per 64 rows). The rate printed is the block table's
+sectors, which the kernels read, over the kernel's time.
+
+    python -m kiss_tpu_torch.experiments.fm_query_time [--device cuda]
+
+``--device cpu --n 300000 --queries 20000 --chunk 5000`` rehearses the
+control flow on the CPU (the plain versions, the host's clock).
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from kiss_tpu_torch import kernels
+from kiss_tpu_torch.models import fm_index as fm
+from kiss_tpu_torch.ops import pack
+from kiss_tpu_torch.utils.device import resolve_device
+from kiss_tpu_torch.utils.roofline import bound_ms
+from kiss_tpu_torch.utils.synth import sample_patterns, synth_genome
+
+N_TEXT = 48_800_648
+N_QUERIES = 1_000_000
+CLI_CHUNK = 100_000
+QLEN = 25
+SA_INTV = 4
+REPS = 100
+
+# The K2 and K3 bounds count what this run's data needs: the LF steps the
+# queries really take (early stop), the walk steps the rows really take and
+# 8 bytes per sa_samp read. The index is counted in whichever of its two
+# layouts needs fewer bytes for those steps, each capped at its own size,
+# since each input byte counts once: lf_tab/b_tab (a 20-byte lf_tab row per
+# LF, a 12-byte b_tab row per mark probe) or the block table (a 32-byte
+# entry and an 8-byte superblock value per LF or probe).
+def index_bytes(arrays, blocks, lfs: int, probes: int) -> int:
+    """Least bytes of the index that ``lfs`` LF steps and ``probes`` mark
+    probes read (an LF at a probed row shares its entry)."""
+    split = (min(arrays.lf_tab.numel() * 4, lfs * 20)
+             + min(arrays.b_tab.numel() * 4, probes * 12))
+    reads = max(lfs, probes)
+    table = (min(blocks.blk.numel() * 4, reads * 32)
+             + min(blocks.sup.numel() * 8, reads * 8))
+    return min(split, table)
+
+
+def k2_bound(fmi, nq: int, qwords: int, lf_steps: int):
+    """K2: packed queries in, three int64 outputs, the index the steps
+    read; about 16 integer operations per LF."""
+    return bound_ms(
+        qwords * 4 + 24 * nq
+        + index_bytes(fmi.arrays, fmi.blocks, 2 * lf_steps, 0),
+        2 * lf_steps * 16,
+    )
+
+
+def k3_bound(fmi, io_bytes: int, walk: int, rows: int):
+    """K3: ranges or rows in, result out; per walk step one LF, a mark
+    probe per row visited, an sa_samp entry per row."""
+    samp = min(fmi.arrays.sa_samp.numel() * 8, rows * 8)
+    return bound_ms(
+        io_bytes + samp
+        + index_bytes(fmi.arrays, fmi.blocks, walk, walk + rows),
+        walk * 16 + rows * 8,
+    )
+
+
+# ---------------------------------------------------------------- sectors
+
+
+def k2_sectors(arrays, qw: torch.Tensor, qlen: int):
+    """(LF steps, lf_tab sectors, block-table sectors) of the backward
+    search of ``qw`` from the full range (lookup 0, early stop), replayed
+    with the plain LF. A step reads, for each bound x, the words
+    ``5 (x >> 4) + c`` and ``5 (x >> 4) + 4`` of lf_tab, or the 32-byte
+    entry ``x >> 6`` of the block table."""
+    w = pack.as_u32(qw)
+    nq = qw.shape[0]
+    b = torch.zeros(nq, dtype=torch.int64, device=qw.device)
+    e = arrays.lookup[-1].expand(nq).clone()
+    steps = old = new = 0
+    for j in range(qlen - 1, -1, -1):
+        alive = e > b
+        c = (w[:, j // 16] >> (2 * (j % 16))) & 3
+        sec = torch.stack(
+            [(20 * (x >> 4) + off) >> 5 for x in (b, e) for off in (4 * c, 16)],
+            dim=1,
+        ).sort(dim=1).values
+        uniq = 1 + (sec[:, 1:] != sec[:, :-1]).sum(dim=1)
+        old += int(uniq[alive].sum())
+        new += int((1 + ((b >> 6) != (e >> 6)).to(torch.int64))[alive].sum())
+        steps += int(alive.sum())
+        nb, ne = fm._lf(arrays, c, b), fm._lf(arrays, c, e)
+        b, e = torch.where(alive, nb, b), torch.where(alive, ne, e)
+    return steps, old, new
+
+
+def walk_sectors(arrays, rows: torch.Tensor, sa_intv: int):
+    """(walk steps, lf_tab + b_tab sectors, block-table sectors) of the
+    locate walk of ``rows``, each with one sa_samp sector a row. The old
+    layout reads at a visited row the mark word of b_tab (and at the last
+    visit b_tab's whole 12-byte row for the rank), and, to step, the BWT
+    word and one count of lf_tab; the block table one entry a visit."""
+    i = rows.to(torch.int64).clone()
+    live = torch.ones_like(i, dtype=torch.bool)
+    steps = old = new = 0
+    for k in range(sa_intv):
+        last = fm._b_at(arrays, i) | (k == sa_intv - 1)
+        r0, r2 = (12 * (i >> 6)) >> 5, (12 * (i >> 6) + 8) >> 5
+        b_uni = torch.where(last, 1 + (r0 != r2).to(torch.int64), 1)
+        c = fm._bwt_at(arrays, i)
+        l4, lc = (20 * (i >> 4) + 16) >> 5, (20 * (i >> 4) + 4 * c) >> 5
+        lf_uni = torch.where(last, 0, 1 + (l4 != lc).to(torch.int64))
+        old += int((b_uni + lf_uni)[live].sum())
+        new += int(live.sum())
+        step = live & ~last
+        steps += int(step.sum())
+        i = torch.where(step, fm._lf_own_symbol(arrays, i), i)
+        live = step
+    n = rows.numel()
+    return steps, old + n, new + n
+
+
+def range_rows(beg: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    """The rows of the ranges [beg, end), query after query."""
+    lens = end - beg
+    total = int(lens.sum())
+    starts = torch.cumsum(lens, dim=0) - lens
+    base = torch.repeat_interleave(beg - starts, lens, output_size=total)
+    return base + torch.arange(total, dtype=torch.int64, device=beg.device)
+
+
+# ---------------------------------------------------------------- timing
+
+
+def time_ms(fn, reps: int, dev: torch.device) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
+    by CUDA events on the card and by the host's clock on the CPU."""
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` by the host's clock (``fn`` ends in a
+    download, so no synchronize is needed)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+SAMPLES_LINE = ("the same rows' sa_samp entries gathered by one PyTorch call "
+                "(sa_samp[idx]: also reads idx, writes its output)")
+
+
+def sample_index(arrays, rows: torch.Tensor, sa_intv: int) -> torch.Tensor:
+    """The sa_samp entry that the locate walk of each row reads: a walked
+    row stays once marked, so sa_intv - 1 masked steps reach them all."""
+    i = rows.clone()
+    for _ in range(sa_intv - 1):
+        i = torch.where(fm._b_at(arrays, i), i, fm._lf_own_symbol(arrays, i))
+    return fm._b_rank(arrays, i)
+
+
+def samples_ms(arrays, rows: torch.Tensor, reps: int) -> float:
+    """Milliseconds of ``sa_samp[idx]`` for the entries that the locate
+    walk of ``rows`` reads (one random read a row): the part of K3's work
+    that no layout of the index tables changes."""
+    sample = sample_index(arrays, rows, SA_INTV)
+    return time_ms(lambda: arrays.sa_samp[sample], reps, rows.device)
+
+
+def _entry_points(fmi, dev):
+    """Launchers of K2 / K3 on prepared inputs: ``k2(qw)``,
+    ``k3_rows(rows)`` and ``k3_stats(beg, end)`` each return (launch,
+    result): ``launch()`` runs the kernel, ``result()`` reads its last
+    output in the plain version's form. On the CPU they call the wrappers
+    (the plain versions)."""
+    a, blocks = fmi.arrays, fmi.blocks
+    if dev.type != "cuda":
+        def wrapped(fn, *args):
+            last = [None]
+
+            def launch():
+                last[0] = fn(a, *args, blocks=blocks)
+
+            return launch, lambda: last[0]
+
+        return (
+            lambda qw: wrapped(fm.get_range_packed_device, qw, QLEN, 0),
+            lambda rows: wrapped(fm.locate_rows_device, rows, SA_INTV),
+            lambda beg, end: wrapped(fm.batch_locate_stats_device, beg, end,
+                                     SA_INTV),
+        )
+    lib = kernels.library()
+    stream = kernels.stream_of(dev)
+    tabs = (blocks.blk.data_ptr(), blocks.sup.data_ptr(), a.pri.data_ptr())
+
+    def checked(name, fn):
+        kernels.check(fn(), name)
+        return fn
+
+    def k2(qw):
+        outs = [torch.empty(qw.shape[0], dtype=torch.int64, device=dev)
+                for _ in range(3)]
+        args = (*tabs, a.lookup.data_ptr(), a.lookup.shape[0], qw.data_ptr(),
+                qw.shape[0], qw.shape[1], QLEN, 0, 1,
+                *(o.data_ptr() for o in outs), stream)
+        return (checked("kt_fm_backward_search",
+                        lambda: lib.kt_fm_backward_search(*args)),
+                lambda: tuple(outs))
+
+    def k3_rows(rows):
+        out = torch.empty_like(rows)
+        args = (*tabs, a.sa_samp.data_ptr(), SA_INTV, rows.data_ptr(),
+                rows.shape[0], out.data_ptr(), stream)
+        return (checked("kt_fm_locate_rows",
+                        lambda: lib.kt_fm_locate_rows(*args)),
+                lambda: out)
+
+    def k3_stats(beg, end):
+        incl = torch.cumsum(end - beg, dim=0)
+        out = torch.empty(2, dtype=torch.int64, device=dev)
+        args = (*tabs, a.sa_samp.data_ptr(), SA_INTV, beg.data_ptr(),
+                incl.data_ptr(), beg.shape[0], out.data_ptr(), stream)
+        keep = (incl, out)  # alive as long as the launchers
+        return (checked("kt_fm_locate_stats",
+                        lambda: lib.kt_fm_locate_stats(*args)),
+                lambda: tuple(keep[1].tolist()))
+
+    return k2, k3_rows, k3_stats
+
+
+def _exact(got, want, what: str) -> None:
+    """Raise unless the kernel's output equals the plain version's."""
+    if isinstance(want, torch.Tensor):
+        want, got = (want,), (got,)
+    for g, w in zip(got, want):
+        same = torch.equal(g, w) if isinstance(w, torch.Tensor) else g == w
+        if not same:
+            raise RuntimeError(f"{what}: kernel disagrees with its plain "
+                               "version")
+
+
+def measure(fmi, qw: torch.Tensor, q_rows: torch.Tensor,
+            rand_rows: torch.Tensor, chunk: int, smi: str, say=print,
+            reps: int = REPS):
+    """Time K2 and K3 at their shapes, hold each output to the plain
+    version's (exact), count sectors, print one line per kernel and shape
+    and one for the wrapper; return {(kernel, shape): dict}."""
+    dev = qw.device
+    a = fmi.arrays
+    k2, k3_rows, k3_stats = _entry_points(fmi, dev)
+    out = {}
+    shapes = {f"chunk {chunk}": qw[:chunk], f"batch {qw.shape[0]}": qw}
+    for shape, q in shapes.items():
+        nq = q.shape[0]
+        beg, end, offs = fm.get_range_packed_device_plain(a, q, QLEN, 0)
+        launch, result = k2(q)
+        ms = time_ms(launch, reps, dev)
+        _exact(result(), (beg, end, offs), f"K2 {shape}")
+        steps, old, new = k2_sectors(a, q, QLEN)
+        if steps != int((QLEN - offs).sum()):
+            raise RuntimeError("K2 sector replay disagrees with the plain "
+                               "version's steps")
+        bound = k2_bound(fmi, nq, q.numel(), steps)
+        out[("fm_backward_search", shape)] = dict(
+            ms=ms, bound=bound, steps=steps, sectors_lf_tab=old,
+            sectors_blocks=new)
+        say(f"K2 {shape} x {QLEN} on {smi}: kernel alone {ms:.4f} "
+            f"ms over {reps} launches; {steps} LF steps; sectors lf_tab/b_tab "
+            f"{old} ({old / max(steps, 1):.3f} a step), block table {new} "
+            f"({new / max(steps, 1):.3f} a step); {new / ms / 1e6:.1f} G "
+            f"sectors/s read; bound {bound[0]:.4f} ms ({bound[1]})")
+
+        rows = range_rows(beg, end)
+        launch, result = k3_stats(beg, end)
+        ms = time_ms(launch, reps, dev)
+        _exact(result(), fm.batch_locate_stats_device_plain(a, beg, end,
+                                                            SA_INTV),
+               f"K3 stats {shape}")
+        wrapper = host_ms(lambda: fm.batch_locate_stats_device(
+            a, beg, end, SA_INTV, blocks=fmi.blocks), reps)
+        walk, old, new = walk_sectors(a, rows, SA_INTV)
+        bound = k3_bound(fmi, 16 * nq + 8, walk, rows.numel())
+        samples = samples_ms(a, rows, reps)
+        out[("fm_locate_stats", shape)] = dict(
+            ms=ms, wrapper_ms=wrapper, bound=bound, rows=rows.numel(),
+            steps=walk, sectors_lf_tab=old, sectors_blocks=new,
+            samples_ms=samples)
+        say(f"K3 stats {shape} ranges ({rows.numel()} rows) on {smi}"
+            f": kernel alone {ms:.4f} ms over {reps} launches; "
+            f"{walk} walk steps; sectors lf_tab/b_tab {old}, block table "
+            f"{new}; {new / ms / 1e6:.1f} G sectors/s read; bound "
+            f"{bound[0]:.4f} ms ({bound[1]}); {SAMPLES_LINE} {samples:.4f} ms")
+        say(f"K3 stats {shape} as the CLI calls it (batch_locate_stats_device"
+            f", download included, host clock): {wrapper:.4f} ms a call")
+
+    for shape, rows in ((f"-q rows {q_rows.numel()}", q_rows),
+                        (f"random rows {rand_rows.numel()}", rand_rows)):
+        launch, result = k3_rows(rows)
+        ms = time_ms(launch, reps, dev)
+        _exact(result(), fm.locate_rows_device_plain(a, rows, SA_INTV),
+               f"K3 rows {shape}")
+        walk, old, new = walk_sectors(a, rows, SA_INTV)
+        bound = k3_bound(fmi, 16 * rows.numel(), walk, rows.numel())
+        samples = samples_ms(a, rows, reps)
+        out[("fm_locate_rows", shape)] = dict(
+            ms=ms, bound=bound, rows=rows.numel(), steps=walk,
+            sectors_lf_tab=old, sectors_blocks=new, samples_ms=samples)
+        say(f"K3 rows {shape} on {smi}: kernel alone {ms:.4f} ms "
+            f"over {reps} launches; {walk} walk steps; sectors lf_tab/b_tab "
+            f"{old}, block table {new}; {new / ms / 1e6:.2f} G sectors/s "
+            f"read; bound {bound[0]:.6f} ms ({bound[1]}); {SAMPLES_LINE} "
+            f"{samples:.4f} ms")
+    return out
+
+
+def query_inputs(fmi, text, nq: int, dev):
+    """(packed patterns, rows of the first pattern's range, nq random
+    rows) as the main path and chip_smoke.py make them."""
+    pats = sample_patterns(text, nq, QLEN)
+    qw = torch.from_numpy(pack.np_pack_queries_2bit(pats).view(np.int32)).to(
+        dev
+    )
+    b, e, _ = fm.get_range_packed_device_plain(fmi.arrays, qw[:1], QLEN, 0)
+    q_rows = torch.arange(int(b[0]), int(e[0]), device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    rand_rows = torch.randint(0, len(text) + 1, (nq,), device=dev,
+                              generator=g)
+    return qw, q_rows, rand_rows
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--n", type=int, default=N_TEXT)
+    p.add_argument("--queries", type=int, default=N_QUERIES)
+    p.add_argument("--chunk", type=int, default=CLI_CHUNK)
+    p.add_argument("--reps", type=int, default=REPS)
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    smi = "cpu (host clock)"
+    if dev.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+    text = synth_genome(args.n)
+    fmi = fm.FMIndex(sa_intv=SA_INTV, lookup_len=0, device=dev).build(text)
+    qw, q_rows, rand_rows = query_inputs(fmi, text, args.queries, dev)
+    measure(fmi, qw, q_rows, rand_rows, args.chunk, smi,
+            say=lambda m: print(m, flush=True), reps=args.reps)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

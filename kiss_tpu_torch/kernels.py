@@ -141,8 +141,8 @@ _SIGNATURES = {
     "kt_fm_backward_search": [
         _P, _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P,
     ],
-    "kt_fm_locate_rows": [_P, _P, _P, _P, _P, _I, _P, _L, _P, _P],
-    "kt_fm_locate_stats": [_P, _P, _P, _P, _P, _I, _P, _P, _L, _L, _P, _P],
+    "kt_fm_locate_rows": [_P, _P, _P, _P, _I, _P, _L, _P, _P],
+    "kt_fm_locate_stats": [_P, _P, _P, _P, _I, _P, _P, _L, _P, _P],
     "kt_probe_stream_copy": [_P, _P, _L, _L, _P],
     "kt_probe_copy_grid": [_P, _P, _L, _L, _P],
     "kt_probe_heavy": [_P, _P, _L, _L, _U, _U, _P],

@@ -10,12 +10,13 @@ include/biovoltron/algo/align/exact_match/fm_index.hpp:99-652):
     mask select. (The TPU build used sorts in place of the gather and the
     select; the outputs are the same.)
   - Queries are batched: the backward search (kernel K2,
-    ``csrc/fm_search.cu``) runs one thread per pattern, each LF step
-    reading one fused ``lf_tab`` row; locate (kernel K3,
+    ``csrc/fm_search.cu``) runs one thread per pattern; locate (kernel K3,
     ``csrc/fm_locate.cu``) walks each row to a sampled one, and its stats
     entry point expands the query ranges, walks and sums the positions in
-    one pass. Each kernel has its plain PyTorch version beside it here,
-    which is what runs on a CPU tensor.
+    one pass. Both read the block table (:class:`FMBlocks`, built with the
+    index): an LF step or a walk step reads one aligned 32-byte entry.
+    Each kernel has its plain PyTorch version beside it here, which reads
+    ``lf_tab`` and ``b_tab`` and is what runs on a CPU tensor.
   - ``save``/``load`` produce byte-identical ``.fmi`` archives
     (reference: fm_index.hpp:591-646 + serializer.hpp layout).
 
@@ -82,6 +83,81 @@ class FMArrays(NamedTuple):
 
 
 _BIT_FIELDS = ("bwt_words", "b_words", "lf_tab", "b_tab")
+
+SUP_BLOCKS = 1024  # 64-row entries a superblock spans: 65,536 rows, so
+# counts within a superblock fit 16 bits
+
+
+class FMBlocks(NamedTuple):
+    """The query kernels' device-only table (never serialized), derived
+    from ``lf_tab`` and ``b_tab`` by :func:`block_table`: everything an LF
+    step or a locate step needs at row i lies in the one aligned 32-byte
+    entry ``blk[i >> 6]``.
+
+    ``blk`` int32 bits [N//64 + 1, 8], entry j for rows [64j, 64j + 64):
+      words 0-3  BWT words 4j .. 4j+3 (64 dibits, LSB-first; 0 past N)
+      words 4-5  mark words 2j, 2j+1 (row r marked: bit r % 64; 0 when
+                 the index samples every row)
+      word 6     occ of symbol 0 (low 16 bits), of symbol 1 (high)
+      word 7     occ of symbol 2 (low), marks (high)
+    The counts are those of rows [65536 s, 64 j) of the entry's superblock
+    s = j // 1024. Symbol 3's is 64 (j % 1024) less the other three, less
+    one if the sentinel row lies among those rows (it packs as symbol 0
+    but counts as none).
+
+    ``sup`` int64 [N//65536 + 1, 8]: LF(c, 65536 s) = cnt[c] + occ(c,
+    65536 s) for symbols 0-3, the marks before row 65536 s, then three zero
+    columns (64-byte rows). So LF(c, i) is sup[i >> 16, c] plus counts
+    from i's entry alone."""
+
+    blk: torch.Tensor
+    sup: torch.Tensor
+
+
+def _table_rows(idx: FMArrays) -> tuple[int, int]:
+    """(entries, superblocks) of the block table of ``idx``: N // 64 + 1
+    and N // 65536 + 1, from lf_tab's N // 16 + 1 rows."""
+    nblk = (idx.lf_tab.shape[0] - 1) // 4 + 1
+    return nblk, (nblk - 1) // SUP_BLOCKS + 1
+
+
+def block_table(idx: FMArrays, sa_intv: int) -> FMBlocks:
+    """The block table of ``idx`` (see :class:`FMBlocks`), on its device.
+    Built once an index (``FMIndex.build`` / ``load``), next to
+    ``lf_tab`` and ``b_tab``, whose rows it re-lays: lf_tab row 4j holds
+    the counts before row 64j, b_tab row j the marks of block j. b_tab
+    has no row for a block that starts at row N (N a multiple of 64):
+    that entry gets no mark bits and the count of all marks. An index
+    that samples every row (``sa_intv == 1``) has no marks."""
+    lf_rows = idx.lf_tab.shape[0]
+    nblk, nsup = _table_rows(idx)
+    dev = idx.lf_tab.device
+    occ = pack.as_u32(idx.lf_tab[0::4, :4])  # before row 64 j
+    words = torch.zeros(4 * nblk, dtype=torch.int32, device=dev)
+    words[:lf_rows] = idx.lf_tab[:, 4]
+    marks = torch.zeros((nblk, 3), dtype=torch.int64, device=dev)
+    if sa_intv != 1:
+        rows = idx.b_tab.shape[0]
+        if rows not in (nblk - 1, nblk):
+            raise ValueError(
+                f"b_tab has {rows} rows; an index of {nblk} 64-row "
+                "blocks has one per block that starts before row N"
+            )
+        marks[:rows] = pack.as_u32(idx.b_tab)
+        marks[rows:, 0] = idx.sa_samp.shape[0]
+    counts = torch.cat([occ, marks[:, :1]], dim=1)  # [nblk, 5]
+    base = counts[0::SUP_BLOCKS]
+    rel = counts - torch.repeat_interleave(base, SUP_BLOCKS, dim=0)[:nblk]
+    sup = torch.zeros((nsup, 8), dtype=torch.int64, device=dev)
+    sup[:, :5] = base
+    sup[:, :4] += idx.cnt
+    blk = torch.cat(
+        [pack.as_u32(words.reshape(nblk, 4)), marks[:, 1:],
+         (rel[:, 0] | (rel[:, 1] << 16))[:, None],
+         (rel[:, 2] | (rel[:, 4] << 16))[:, None]],
+        dim=1,
+    )
+    return FMBlocks(pack.to_u32_bits(blk), sup)
 
 
 def arrays_from_numpy(d, device) -> FMArrays:
@@ -317,19 +393,21 @@ def _device_of(idx: FMArrays) -> torch.device:
     return idx.lf_tab.device
 
 
-def _kernel_inputs(idx: FMArrays, **extra) -> None:
-    """Validate an index (and extra inputs) handed to a kernel."""
+def _kernel_inputs(idx: FMArrays, blocks: FMBlocks, **extra) -> None:
+    """Validate an index, its block table and extra inputs handed to a
+    kernel."""
     dev = _device_of(idx)
-    kernels.require(idx.lf_tab, "lf_tab", torch.int32, 2)
-    kernels.require(idx.b_tab, "b_tab", torch.int32, 2)
-    kernels.require(idx.cnt, "cnt", torch.int64, 1)
+    kernels.require(blocks.blk, "blocks.blk", torch.int32, 2)
+    kernels.require(blocks.sup, "blocks.sup", torch.int64, 2)
+    nblk, nsup = _table_rows(idx)
+    if blocks.blk.shape != (nblk, 8) or blocks.sup.shape != (nsup, 8):
+        raise ValueError("blocks is not the block table of this index")
     kernels.require(idx.pri, "pri", torch.int64, 0)
     kernels.require(idx.sa_samp, "sa_samp", torch.int64, 1)
     kernels.require(idx.lookup, "lookup", torch.int64, 1)
     kernels.require_cuda(
-        {"lf_tab": idx.lf_tab, "b_tab": idx.b_tab, "cnt": idx.cnt,
-         "pri": idx.pri, "sa_samp": idx.sa_samp, "lookup": idx.lookup,
-         **extra},
+        {"blocks.blk": blocks.blk, "blocks.sup": blocks.sup, "pri": idx.pri,
+         "sa_samp": idx.sa_samp, "lookup": idx.lookup, **extra},
         dev,
     )
 
@@ -381,7 +459,8 @@ def get_range_packed_device_plain(idx: FMArrays, qwords: torch.Tensor,
 
 
 def get_range_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
-                            lookup_len: int, early_stop: bool = True):
+                            lookup_len: int, early_stop: bool = True, *,
+                            blocks: FMBlocks):
     """Backward search of Q patterns of length ``qlen``, 2-bit packed
     (``qwords``: int32 bits [Q, ceil(qlen/16)], symbol j of query q at
     bits 2*(j%16) of word j//16). Returns (beg, end, offs) int64[Q];
@@ -389,8 +468,9 @@ def get_range_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
     compute_range's early-stop semantics (reference: fm_index.hpp:
     224-235). ``early_stop=False`` keeps walking an empty range (the
     lookup-table build). CUDA tensors launch kernel K2
-    ``fm_backward_search`` (csrc/fm_search.cu); CPU tensors run the plain
-    version."""
+    ``fm_backward_search`` (csrc/fm_search.cu), which reads ``blocks``,
+    the index's :func:`block_table`; CPU tensors run the plain version,
+    which reads ``lf_tab`` and not ``blocks``."""
     kernels.require(qwords, "qwords", torch.int32, 2)
     if qwords.shape[1] != -(-qlen // 16):
         raise ValueError(
@@ -402,7 +482,7 @@ def get_range_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
     if qwords.device.type == "cpu":
         return get_range_packed_device_plain(idx, qwords, qlen, lookup_len,
                                              early_stop)
-    _kernel_inputs(idx, qwords=qwords)
+    _kernel_inputs(idx, blocks, qwords=qwords)
     dev = qwords.device
     q = qwords.shape[0]
     beg = torch.empty(q, dtype=torch.int64, device=dev)
@@ -411,7 +491,7 @@ def get_range_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
     lib = kernels.library()
     kernels.check(
         lib.kt_fm_backward_search(
-            idx.lf_tab.data_ptr(), idx.cnt.data_ptr(), idx.pri.data_ptr(),
+            blocks.blk.data_ptr(), blocks.sup.data_ptr(), idx.pri.data_ptr(),
             idx.lookup.data_ptr(), idx.lookup.shape[0], qwords.data_ptr(),
             q, qwords.shape[1], qlen, lookup_len, int(early_stop),
             beg.data_ptr(), end.data_ptr(), offs.data_ptr(),
@@ -430,7 +510,8 @@ def _packed_queries(queries, device) -> torch.Tensor:
 
 
 def get_range_device(idx: FMArrays, queries, lookup_len: int,
-                     early_stop: bool = True):
+                     early_stop: bool = True, *,
+                     blocks: FMBlocks):
     """Backward search for int8[Q, m] patterns (symbols 0..3): packed on
     the host, then the same kernel as :func:`get_range_packed_device`."""
     if isinstance(queries, torch.Tensor):
@@ -438,16 +519,18 @@ def get_range_device(idx: FMArrays, queries, lookup_len: int,
     m = np.asarray(queries).shape[1]
     return get_range_packed_device(
         idx, _packed_queries(queries, _device_of(idx)), m, lookup_len,
-        early_stop,
+        early_stop, blocks=blocks,
     )
 
 
 def counts_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
-                         lookup_len: int) -> torch.Tensor:
+                         lookup_len: int, *,
+                         blocks: FMBlocks) -> torch.Tensor:
     """Per-query occurrence counts (end - beg), int64 -- the count-only
     form of the batch loop (reference: include/command/
     fmindex_query.hpp:66-99 accumulates ``occ += end - beg``)."""
-    beg, end, _ = get_range_packed_device(idx, qwords, qlen, lookup_len)
+    beg, end, _ = get_range_packed_device(idx, qwords, qlen, lookup_len,
+                                          blocks=blocks)
     return end - beg
 
 
@@ -473,21 +556,24 @@ def locate_rows_device_plain(idx: FMArrays, rows: torch.Tensor,
     return idx.sa_samp[_b_rank(idx, i)] + steps
 
 
-def locate_rows_device(idx: FMArrays, rows: torch.Tensor, sa_intv: int):
+def locate_rows_device(idx: FMArrays, rows: torch.Tensor, sa_intv: int, *,
+                       blocks: FMBlocks):
     """Text positions (int64) of suffix-array ``rows`` (int64): the
     vectorized compute_sa (reference: fm_index.hpp:210-222). CUDA
     tensors launch kernel K3's ``fm_locate_rows`` entry point
-    (csrc/fm_locate.cu); CPU tensors run the plain version."""
+    (csrc/fm_locate.cu), which reads ``blocks``, the index's
+    :func:`block_table`; CPU tensors run the plain version, which reads
+    ``lf_tab`` and ``b_tab`` and not ``blocks``."""
     kernels.require(rows, "rows", torch.int64, 1)
     if rows.device.type == "cpu":
         return locate_rows_device_plain(idx, rows, sa_intv)
-    _kernel_inputs(idx, rows=rows)
+    _kernel_inputs(idx, blocks, rows=rows)
     out = torch.empty_like(rows)
     lib = kernels.library()
     kernels.check(
         lib.kt_fm_locate_rows(
-            idx.lf_tab.data_ptr(), idx.b_tab.data_ptr(), idx.cnt.data_ptr(),
-            idx.pri.data_ptr(), idx.sa_samp.data_ptr(), sa_intv,
+            blocks.blk.data_ptr(), blocks.sup.data_ptr(), idx.pri.data_ptr(),
+            idx.sa_samp.data_ptr(), sa_intv,
             rows.data_ptr(), rows.shape[0], out.data_ptr(),
             kernels.stream_of(rows.device),
         ),
@@ -514,41 +600,43 @@ def batch_locate_stats_device_plain(idx: FMArrays, beg: torch.Tensor,
 
 
 def batch_locate_stats_device(idx: FMArrays, beg: torch.Tensor,
-                              end: torch.Tensor, sa_intv: int):
+                              end: torch.Tensor, sa_intv: int, *,
+                              blocks: FMBlocks):
     """(total occurrences, location checksum) of the row ranges
     [beg, end) of a query batch -- the two accumulators of the reference
     batch loop (reference: include/command/fmindex_query.hpp:87-94) --
     as Python ints. The checksum is the sum of every located position,
     the integer that kiss_tpu assembles as sum(lo) + (sum(hi) << 16).
     CUDA tensors launch kernel K3's ``fm_locate_stats`` entry point, a
-    fused expand + walk + reduce pass (csrc/fm_locate.cu); CPU tensors
-    run the plain version. Nothing but the two integers leaves the
-    device."""
+    fused expand + walk + reduce pass over ``blocks``, the index's
+    :func:`block_table` (csrc/fm_locate.cu); CPU tensors run the plain
+    version, which reads ``lf_tab`` and ``b_tab`` and not ``blocks``. The host waits once, for the two integers, which are all
+    that leaves the device."""
     kernels.require(beg, "beg", torch.int64, 1)
     kernels.require(end, "end", torch.int64, 1)
     if beg.shape != end.shape:
         raise ValueError("beg and end differ in shape")
     if beg.device.type == "cpu":
         return batch_locate_stats_device_plain(idx, beg, end, sa_intv)
-    _kernel_inputs(idx, beg=beg, end=end)
-    lens = end - beg
-    starts = torch.cumsum(lens, dim=0) - lens
-    total = int(lens.sum())
-    if total == 0:
+    _kernel_inputs(idx, blocks, beg=beg, end=end)
+    if beg.shape[0] == 0:
         return 0, 0
-    checksum = torch.empty(1, dtype=torch.int64, device=beg.device)
+    # the kernel reads the total from the inclusive prefix sum of the
+    # lengths and writes (total, checksum): no wait before the launch
+    incl = torch.cumsum(end - beg, dim=0)
+    out = torch.empty(2, dtype=torch.int64, device=beg.device)
     lib = kernels.library()
     kernels.check(
         lib.kt_fm_locate_stats(
-            idx.lf_tab.data_ptr(), idx.b_tab.data_ptr(), idx.cnt.data_ptr(),
-            idx.pri.data_ptr(), idx.sa_samp.data_ptr(), sa_intv,
-            beg.data_ptr(), starts.data_ptr(), beg.shape[0], total,
-            checksum.data_ptr(), kernels.stream_of(beg.device),
+            blocks.blk.data_ptr(), blocks.sup.data_ptr(), idx.pri.data_ptr(),
+            idx.sa_samp.data_ptr(), sa_intv, beg.data_ptr(), incl.data_ptr(),
+            beg.shape[0], out.data_ptr(), kernels.stream_of(beg.device),
         ),
         "kt_fm_locate_stats",
     )
     kernels.count_launch("fm_locate_stats")
-    return total, int(checksum.item())
+    total, checksum = out.tolist()
+    return total, checksum
 
 
 # ---------------------------------------------------------------------------
@@ -754,6 +842,8 @@ class FMIndex:
     # archives loaded from disk): locate needs the range BFS.
     full_sa: bool = True
     device: str | torch.device = "cuda"
+    # the query kernels' table (block_table of arrays), made with them
+    blocks: FMBlocks | None = None
 
     @property
     def _dev(self) -> torch.device:
@@ -784,7 +874,9 @@ class FMIndex:
         with timing.stage("fmindex build") as out:
             arrays = build_index_device(torch.from_numpy(ref).to(dev), sa,
                                         self.sa_intv)
-            out["block_on"] = arrays
+            # the stage's time includes the block table, made last
+            self.blocks = block_table(arrays, self.sa_intv)
+            out["block_on"] = self.blocks
         self.arrays = arrays
         self.n_rows = len(ref) + 1
         self._build_lookup()
@@ -810,7 +902,8 @@ class FMIndex:
                     2 * (j % 16)
                 )
             beg, _end, _ = get_range_packed_device(
-                self.arrays, pack.to_u32_bits(words), L, 0, early_stop=False
+                self.arrays, pack.to_u32_bits(words), L, 0, early_stop=False,
+                blocks=self.blocks,
             )
             lookup = torch.cat([beg, torch.tensor([N], device=dev)])
         self.arrays = self.arrays._replace(lookup=lookup)
@@ -822,7 +915,8 @@ class FMIndex:
 
     def _ranges(self, queries: np.ndarray):
         """Device (beg, end, offs) for int8[Q, m] host patterns."""
-        return get_range_device(self.arrays, queries, self.lookup_len)
+        return get_range_device(self.arrays, queries, self.lookup_len,
+                                blocks=self.blocks)
 
     def get_range(self, query: np.ndarray):
         """Single-pattern range; returns (beg, end, offs)."""
@@ -853,7 +947,7 @@ class FMIndex:
             return np.empty(0, dtype=np.uint32)
         out = locate_rows_device(
             self.arrays, torch.from_numpy(rows).to(_device_of(self.arrays)),
-            self.sa_intv,
+            self.sa_intv, blocks=self.blocks,
         )
         return out.cpu().numpy().astype(np.uint32)
 
@@ -917,9 +1011,10 @@ class FMIndex:
         if queries.size == 0:
             return 0, 0
         beg, end, _ = self._ranges(queries)
-        stats = (batch_bfs_stats_device if self._routes_to_bfs()
-                 else batch_locate_stats_device)
-        return stats(self.arrays, beg, end, self.sa_intv)
+        if self._routes_to_bfs():
+            return batch_bfs_stats_device(self.arrays, beg, end, self.sa_intv)
+        return batch_locate_stats_device(self.arrays, beg, end, self.sa_intv,
+                                         blocks=self.blocks)
 
     # -- serialization ----------------------------------------------------
 
@@ -1015,6 +1110,7 @@ class FMIndex:
             lf_tab=_fuse_lf_tab(occ1_d, occ2_d, bwt_words_d),
             b_tab=_fuse_b_tab(b_occ_d, b_words_d),
         )
+        self.blocks = block_table(self.arrays, self.sa_intv)
         return self
 
     def __eq__(self, other) -> bool:

@@ -1,0 +1,23 @@
+"""The least time one H100 could take for a kernel's work: its bytes over
+the memory rate or its integer operations over the integer rate, whichever
+is larger. ``chip_smoke.py`` and the timing experiments give every kernel
+this bound beside its measured time."""
+
+from __future__ import annotations
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet). The sheet gives no
+# rate for 32-bit integer arithmetic outside the tensor cores; Hopper runs
+# it on half of the lanes that give the sheet's 67 TFLOP/s in float32.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 67e12 / 2
+
+
+def bound_ms(bytes_moved: float, int_ops: float):
+    """(least milliseconds the card could take, what bounds it): the
+    larger of the bytes over the memory rate and the integer operations
+    over the integer rate."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"

@@ -153,7 +153,8 @@ def test_bfs_equals_walk_on_full_sa_index(text, sa_intv):
     q = _queries(text, QLEN, 6)
     beg, end, _ = t._ranges(q)
     assert tfm.batch_bfs_stats_device(t.arrays, beg, end, sa_intv) == (
-        tfm.batch_locate_stats_device(t.arrays, beg, end, sa_intv)
+        tfm.batch_locate_stats_device(t.arrays, beg, end, sa_intv,
+                                      blocks=t.blocks)
     )
     N = len(text) + 1
     whole = tfm.bfs_locate_device(

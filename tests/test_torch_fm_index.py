@@ -92,6 +92,7 @@ def test_ranges_on_jax_index_equal(pair, qlen, lookup_len):
     text, built = pair
     j, _ = built[lookup_len]
     arrays = tfm.arrays_from_numpy(_np_arrays(j), "cpu")
+    blocks = tfm.block_table(arrays, 4)
     q = _queries(text, qlen, qlen)
     qw = jpack.np_pack_queries_2bit(q)
     for early in (True, False):
@@ -100,12 +101,12 @@ def test_ranges_on_jax_index_equal(pair, qlen, lookup_len):
         )
         got = tfm.get_range_packed_device(
             arrays, torch.from_numpy(qw.view(np.int32)), qlen, lookup_len,
-            early,
+            early, blocks=blocks,
         )
         for w, g in zip(want, got):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     # the unpacked entry point packs on the host: same answer
-    got2 = tfm.get_range_device(arrays, q, lookup_len)
+    got2 = tfm.get_range_device(arrays, q, lookup_len, blocks=blocks)
     want2 = jfm.get_range_device(j.arrays, jnp.asarray(q), lookup_len)
     for w, g in zip(want2, got2):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -117,7 +118,9 @@ def test_locate_rows_and_stats_on_jax_index_equal(pair):
     arrays = tfm.arrays_from_numpy(_np_arrays(j), "cpu")
     rows = np.random.default_rng(3).integers(0, len(text) + 1, 2048)
     want = jfm.locate_rows_device(j.arrays, jnp.asarray(rows, jnp.int32), 4)
-    got = tfm.locate_rows_device(arrays, torch.from_numpy(rows), 4)
+    blocks = tfm.block_table(arrays, 4)
+    got = tfm.locate_rows_device(arrays, torch.from_numpy(rows), 4,
+                                 blocks=blocks)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     q = _queries(text, 9, 1)
@@ -132,7 +135,8 @@ def test_locate_rows_and_stats_on_jax_index_equal(pair):
     )
     tb = torch.from_numpy(np.asarray(jb).astype(np.int64))
     te = torch.from_numpy(np.asarray(je).astype(np.int64))
-    assert tfm.batch_locate_stats_device(arrays, tb, te, 4) == (
+    assert tfm.batch_locate_stats_device(arrays, tb, te, 4,
+                                         blocks=blocks) == (
         total, want_chk
     )
 

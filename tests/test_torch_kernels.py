@@ -145,7 +145,7 @@ def index_pair():
 def test_backward_search_matches_plain(index_pair, qlen, lookup_len,
                                        early_stop):
     text, idx = index_pair
-    arrays = idx[lookup_len].arrays
+    arrays, blocks = idx[lookup_len].arrays, idx[lookup_len].blocks
     rng = np.random.default_rng(qlen)
     starts = rng.integers(0, len(text) - qlen, 3000)
     queries = text[starts[:, None] + np.arange(qlen)[None, :]]
@@ -153,11 +153,28 @@ def test_backward_search_matches_plain(index_pair, qlen, lookup_len,
     qw = torch.from_numpy(
         pack.np_pack_queries_2bit(queries).view(np.int32)
     ).cuda()
-    got = fm.get_range_packed_device(arrays, qw, qlen, lookup_len, early_stop)
+    got = fm.get_range_packed_device(arrays, qw, qlen, lookup_len, early_stop,
+                                     blocks=blocks)
     want = fm.get_range_packed_device_plain(arrays, qw, qlen, lookup_len,
                                             early_stop)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lookup_len", [0, 4])
+def test_backward_search_one_query(index_pair, lookup_len):
+    """Q = 1 (the -q path), found and absent, unseeded and seeded."""
+    text, idx = index_pair
+    f = idx[lookup_len]
+    for q in (text[1000:1025], np.zeros(25, np.int8)):
+        qw = torch.from_numpy(
+            pack.np_pack_queries_2bit(q[None, :]).view(np.int32)
+        ).cuda()
+        got = fm.get_range_packed_device(f.arrays, qw, 25, lookup_len,
+                                         blocks=f.blocks)
+        want = fm.get_range_packed_device_plain(f.arrays, qw, 25, lookup_len)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_locate_rows_and_stats_match_plain(index_pair):
@@ -166,16 +183,97 @@ def test_locate_rows_and_stats_match_plain(index_pair):
     rng = np.random.default_rng(3)
     rows = torch.from_numpy(rng.integers(0, len(text) + 1, 20_000)).cuda()
     assert torch.equal(
-        fm.locate_rows_device(f.arrays, rows, 4),
+        fm.locate_rows_device(f.arrays, rows, 4, blocks=f.blocks),
         fm.locate_rows_device_plain(f.arrays, rows, 4),
     )
     queries = text[rng.integers(0, len(text) - 12, 2000)[:, None]
                    + np.arange(12)[None, :]]
     qw = torch.from_numpy(pack.np_pack_queries_2bit(queries).view(np.int32))
-    beg, end, _ = fm.get_range_packed_device(f.arrays, qw.cuda(), 12, 0)
-    assert fm.batch_locate_stats_device(f.arrays, beg, end, 4) == (
+    beg, end, _ = fm.get_range_packed_device(f.arrays, qw.cuda(), 12, 0,
+                                             blocks=f.blocks)
+    assert fm.batch_locate_stats_device(f.arrays, beg, end, 4,
+                                        blocks=f.blocks) == (
         fm.batch_locate_stats_device_plain(f.arrays, beg, end, 4)
     )
+
+
+def _ranges(pairs):
+    beg, end = zip(*pairs)
+    return (torch.tensor(beg, dtype=torch.int64, device="cuda"),
+            torch.tensor(end, dtype=torch.int64, device="cuda"))
+
+
+def test_locate_stats_edge_ranges(index_pair):
+    """One range, all ranges empty (total 0), a range across the superblock
+    boundary at row 65,536 (the index has 65,537 rows), the last row, and
+    many empty ranges between long ones (a row's search then passes over
+    many ranges that end where it starts)."""
+    _, idx = index_pair
+    f = idx[0]
+    N = f.n_rows
+    rng = np.random.default_rng(8)
+    lens = np.where(rng.random(5000) < 0.97, 0,
+                    rng.integers(1, 3000, 5000))
+    starts = rng.integers(0, N - 3000, 5000)
+    cases = {
+        "one": [(100, 140)],
+        "one row": [(N - 1, N)],
+        "all empty": [(7, 7)] * 3000,
+        "superblock": [(65_000, N), (65_535, 65_537), (0, 1)],
+        "sparse": list(zip(starts, starts + lens)),
+    }
+    for name, pairs in cases.items():
+        beg, end = _ranges(pairs)
+        got = fm.batch_locate_stats_device(f.arrays, beg, end, 4,
+                                           blocks=f.blocks)
+        want = fm.batch_locate_stats_device_plain(f.arrays, beg, end, 4)
+        assert got == want, name
+    assert fm.batch_locate_stats_device(
+        f.arrays, *_ranges([(7, 7)] * 3000), 4, blocks=f.blocks) == (0, 0)
+    rows = torch.arange(65_400, N, device="cuda")
+    assert torch.equal(
+        fm.locate_rows_device(f.arrays, rows, 4, blocks=f.blocks),
+        fm.locate_rows_device_plain(f.arrays, rows, 4),
+    )
+
+
+@pytest.mark.parametrize("sa_intv", [1, 2])
+def test_locate_other_sampling(cuda, sa_intv):
+    """sa_intv 1 (sa_samp read directly, no marks) and 2, across a
+    superblock."""
+    from tests import oracle
+
+    text = oracle.random_dna(70_000, seed=sa_intv)
+    f = fm.FMIndex(sa_intv=sa_intv, device="cuda").build(text)
+    rows = torch.arange(0, f.n_rows, device="cuda")
+    assert torch.equal(
+        fm.locate_rows_device(f.arrays, rows, sa_intv, blocks=f.blocks),
+        fm.locate_rows_device_plain(f.arrays, rows, sa_intv),
+    )
+    beg, end = _ranges([(0, 10), (60_000, 70_001), (5, 5)])
+    assert fm.batch_locate_stats_device(f.arrays, beg, end, sa_intv,
+                                        blocks=f.blocks) == (
+        fm.batch_locate_stats_device_plain(f.arrays, beg, end, sa_intv)
+    )
+
+
+def test_wrappers_need_the_block_table(index_pair):
+    """On the card the wrappers launch the kernels, which read the block
+    table: without it, or with another index's, they raise, with no
+    fallback."""
+    _, idx = index_pair
+    f = idx[0]
+    other = fm.FMIndex(device="cuda").build(np.zeros(100, np.int8)).blocks
+    qw = torch.zeros((4, 2), dtype=torch.int32, device="cuda")
+    rows = torch.zeros(4, dtype=torch.int64, device="cuda")
+    with pytest.raises(TypeError, match="blocks"):
+        fm.get_range_packed_device(f.arrays, qw, 25, 0)
+    with pytest.raises(ValueError, match="block table"):
+        fm.get_range_packed_device(f.arrays, qw, 25, 0, blocks=other)
+    with pytest.raises(ValueError, match="block table"):
+        fm.locate_rows_device(f.arrays, rows, 4, blocks=other)
+    with pytest.raises(ValueError, match="block table"):
+        fm.batch_locate_stats_device(f.arrays, rows, rows, 4, blocks=other)
 
 
 def test_sa_on_card_equals_cpu(cuda):
