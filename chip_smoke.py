@@ -35,6 +35,32 @@ exits non-zero and prints no result line):
      ``fmindex_query -b`` and ``-q`` on it, and ``-b`` on the full-sort
      archive with its ``.meta`` removed: occurrences and checksum equal
      the oracle's, positions equal the full index's per-row walk;
+  7a. the out-of-core sorter at full width: ``suffix_sort --external -k
+     256`` through the CLI (launch counters reset just before and read
+     just after), and the library call at k = 100 and k = -1 with
+     ``batch_rows = 2**21`` (several seed batches and round segments),
+     each SA bit-identical to the in-core SA at the same k; the first K1
+     launch of each width held against the plain version; the stage
+     split;
+  7b. the CLI's other sort routes: ``suffix_sort -k 256`` with
+     ``KISS_TPU_INCORE_CAP`` below n logs the ``routing:`` line and sorts
+     out of core, and ``-s LMS_INDUCED -k -1 -t 8`` on a random
+     2**22 + 6-character text, whose SA (``LmsSorter``) equals the
+     in-core one;
+  7c. ``serve`` on the full-sort archive with an injected stdin (the
+     ``-q`` pattern, the batch, a missing batch file, ``quit``):
+     ``ready``, ``ok``, ``ok``, ``err ...``, and the batch's occurrences
+     and checksum equal the oracle's;
+  7d. the general alphabet: ``get_suffix_array`` of DNA text equals
+     ``get_suffix_array_dna``'s SA (launch counters reset just before and
+     read just after); a 20-symbol text at 2**20 + 6 characters, k = 256
+     and -1, equals the same call on the CPU; every K1 launch of the
+     general sort held against the plain version;
+  7e. the range BFS at N % 64 == 0: ``fmindex_build -k 32`` at n =
+     2**22 - 1, then ``-b`` (the oracle's occurrences and checksum) and
+     ``-q T`` (a range that ends at row N);
+     then K1 timed at each new launch shape (external seed batch, round
+     segment, general seed);
   8. the probe path: ``kiss_tpu_torch.experiments.micro_kernels`` and
      ``micro_copy`` through their ``main`` at the probes' own size
      (48,758,784 elements), launch counters reset just before and read
@@ -77,6 +103,9 @@ CLI_CHUNK = 100_000  # queries per batch_query_stats call of ``-b``
 N_PROBE = 48_758_784  # elements per probe operand: 186 tiles of 2048 x 128
 PROBE_ROWS = 2048
 PROBE_REPS = 50  # launches per timing of a probe kernel
+# out-of-core batch rows small enough that the 48.8M genome's seed takes
+# many batches and its first round (about 5M active rows) several segments
+EXT_BATCH_ROWS = 1 << 21
 
 KERNELS = {
     "radix_sort_words": (
@@ -112,22 +141,6 @@ def check(cond, msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-class LogLines(logging.Handler):
-    """Collects the CLI's log messages (they propagate to the root)."""
-
-    def __init__(self):
-        super().__init__(logging.DEBUG)
-        self.lines = []
-
-    def emit(self, record):
-        self.lines.append(record.getMessage())
-
-    def value(self, prefix: str) -> str:
-        hits = [m[len(prefix):] for m in self.lines if m.startswith(prefix)]
-        check(hits, f"no log line starting {prefix!r}")
-        return hits[-1]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -324,29 +337,303 @@ def oracle_stats(torch, text_dev, pats_dev):
     return int((hi - lo).sum()), int((prefix[hi] - prefix[lo]).sum())
 
 
-def check_k_sorted_sample(torch, text_dev, sa, k: int, samples: int):
-    """``samples`` random adjacent SA rows are in order by their first k
-    characters (a suffix that ends sorts first), ties by position; the
-    SA is a permutation of 0..n."""
-    n = text_dev.shape[0]
-    N = n + 1
-    check(sa.shape[0] == N, "SA length")
-    check(bool((torch.bincount(sa, minlength=N) == 1).all()),
-          "SA is not a permutation")
-    padded = torch.full((n + k,), -1, dtype=torch.int16, device=sa.device)
-    padded[:n] = text_dev.to(torch.int16)
-    g = torch.Generator(device=sa.device).manual_seed(5)
-    r = torch.randint(0, N - 1, (samples,), device=sa.device, generator=g)
-    a, b = sa[r], sa[r + 1]
-    cols = torch.arange(k, device=sa.device)
-    wa, wb = padded[a[:, None] + cols], padded[b[:, None] + cols]
-    diff = wa != wb
-    first = torch.argmax(diff.to(torch.int32), dim=1)
-    rows = torch.arange(samples, device=sa.device)
-    ok = torch.where(
-        diff.any(dim=1), wa[rows, first] < wb[rows, first], a < b
+def k1_bound(keys):
+    """K1 bound: the W key words read and written once, the permutation
+    written (8 bytes a key); one digit step per key byte"""
+    from kiss_tpu_torch.utils.roofline import bound_ms
+
+    return bound_ms(2 * keys.numel() * 4 + 8 * keys.shape[1],
+                    keys.numel() * 4)
+
+
+def recorded_k1(shapes, label, every=False):
+    """A sort seam that runs K1 (``radix_sort_wide``) and keeps the keys of
+    its first launch of each width (of every launch with ``every``) in
+    ``shapes`` for :func:`phase_k1_shapes`. It launches nothing else."""
+    from kiss_tpu_torch.ops.radix_sort import radix_sort_wide
+
+    calls = []
+
+    def sort(keys):
+        calls.append(keys.shape)
+        name = f"{label} W={keys.shape[0]}"
+        if every:
+            name = f"{label} launch {len(calls)} W={keys.shape[0]}"
+        shapes.setdefault(name, keys)
+        return radix_sort_wide(keys)
+
+    return sort
+
+
+def compared_k1(err):
+    """A sort seam that runs K1 and holds every launch against the plain
+    version, exact."""
+    from kiss_tpu_torch.ops.radix_sort import (
+        radix_sort_wide,
+        radix_sort_words_plain,
     )
-    check(bool(ok.all()), "k=256 SA sample out of order")
+
+    def sort(keys):
+        got = radix_sort_wide(keys)
+        want = radix_sort_words_plain(keys)
+        err["radix_sort_words"] = max(
+            err["radix_sort_words"], exact(got[1], want[1]),
+            exact(got[0], want[0]),
+        )
+        return got
+
+    return sort
+
+
+def phase_external(torch, np, cli, kernels, fa, text, text_dev, err, shapes):
+    """7a: the out-of-core sorter at full width against the in-core SAs.
+    Returns (K1 launches of the --external CLI run, the stage splits)."""
+    from kiss_tpu_torch.ops import external_sort as ext
+    from kiss_tpu_torch.ops.radix_sort import radix_sort_wide
+    from kiss_tpu_torch.ops.suffix_sort import k_ordered_suffix_array
+    from kiss_tpu_torch.utils.checks import Kept
+
+    t_phase = time.perf_counter()
+    incore = {k: k_ordered_suffix_array(text_dev, k, device="cuda")
+              for k in (256, 100, -1)}
+    splits = {run: {} for run in (
+        "--external -k 256 (CLI)", f"k=100, batch_rows {EXT_BATCH_ROWS}",
+        f"k=-1, batch_rows {EXT_BATCH_ROWS}")}
+    # the batches' sort seam keeps each width's first keys (no launch of its
+    # own): phase_k1_shapes holds them to the plain version and times them
+    ext.radix_sort_wide = recorded_k1(shapes, "--external -k 256",
+                                      every=True)
+    try:
+        with Kept(ext, "external_k_ordered_suffix_array",
+                  split=splits["--external -k 256 (CLI)"]) as kept:
+            kernels.reset_launch_counts()
+            rc = cli.main(["suffix_sort", "--external", "-k", "256", fa])
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        ext.radix_sort_wide = radix_sort_wide
+    check(rc == 0 and len(kept.values) == 1, "--external did not run")
+    check(np.array_equal(kept.values[0], incore[256]),
+          "--external -k 256 SA differs from the in-core SA")
+    check(launches["radix_sort_words"] > 0
+          and sum(launches.values()) == launches["radix_sort_words"],
+          f"the --external route's launches are not K1 only: {launches}")
+    ext.radix_sort_wide = recorded_k1(shapes, f"batch_rows {EXT_BATCH_ROWS}")
+    try:
+        for k in (100, -1):
+            sa = ext.external_k_ordered_suffix_array(
+                text, k, batch_rows=EXT_BATCH_ROWS, device="cuda",
+                split=splits[f"k={k}, batch_rows {EXT_BATCH_ROWS}"],
+            )
+            check(np.array_equal(sa, incore[k]),
+                  f"out-of-core k={k} SA differs from the in-core SA")
+    finally:
+        ext.radix_sort_wide = radix_sort_wide
+    del sa, incore
+    many = splits[f"k=100, batch_rows {EXT_BATCH_ROWS}"]
+    check(many["seed batches"] >= 6 and many["round segments"] >= 2,
+          f"batch_rows {EXT_BATCH_ROWS} did not split the work: {many}")
+    say(f"out-of-core sorter n={len(text)}: --external -k 256 through the "
+        f"CLI and k=100, k=-1 at batch_rows {EXT_BATCH_ROWS} bit-identical "
+        "to the in-core SAs; K1 launches of the --external run "
+        f"{launches['radix_sort_words']}; stage split (s): " + "; ".join(
+            f"{run}: " + ", ".join(
+                f"{k} {int(v) if k.endswith(('batches', 'segments')) else v}"
+                for k, v in sp.items())
+            for run, sp in splits.items())
+        + f"; phase {time.perf_counter() - t_phase:.3f} s")
+    return launches["radix_sort_words"], splits
+
+
+def phase_routes(torch, np, cli, kernels, logs, tmp):
+    """7b: the automatic route under KISS_TPU_INCORE_CAP, and
+    -s LMS_INDUCED on random text. Returns the K1 launches of the routed
+    run."""
+    from kiss_tpu_torch import LmsSorter
+    from kiss_tpu_torch.ops import external_sort as ext
+    from kiss_tpu_torch.ops.suffix_sort import k_ordered_suffix_array
+    from kiss_tpu_torch.utils import fasta
+    from kiss_tpu_torch.utils.checks import Kept
+
+    t_phase = time.perf_counter()
+    text = np.random.default_rng(17).integers(0, 4, SMALL_N, dtype=np.int8)
+    fa = os.path.join(tmp, "random.fa")
+    fasta.write_fasta(fa, [fasta.FastaRecord("random", text)], width=80)
+    text_dev = torch.from_numpy(text).cuda()
+    cap = SMALL_N // 2
+    os.environ["KISS_TPU_INCORE_CAP"] = str(cap)
+    try:
+        with Kept(ext, "external_k_ordered_suffix_array") as kept:
+            del logs.lines[:]
+            kernels.reset_launch_counts()
+            rc = cli.main(["suffix_sort", "-k", "256", fa])
+            torch.cuda.synchronize()
+            routed = kernels.LAUNCHES["radix_sort_words"]
+    finally:
+        del os.environ["KISS_TPU_INCORE_CAP"]
+    routing = logs.value("routing: ")
+    check(rc == 0 and routing.startswith(
+        f"n = {SMALL_N} exceeds the in-core device budget ({cap} chars x 1 "
+        "device(s))"), f"routing line: {routing}")
+    check(len(kept.values) == 1 and routed > 0
+          and np.array_equal(kept.values[0], k_ordered_suffix_array(
+              text_dev, 256, device="cuda")),
+          "the routed sort did not run out of core through K1, or its SA "
+          "differs from the in-core one")
+    del logs.lines[:]
+    rc, lms_cli_s = wall_s(lambda: cli.main(
+        ["suffix_sort", "-s", "LMS_INDUCED", "-k", "-1", "-t", "8", fa]))
+    lms_line = logs.value(f"n = {SMALL_N}, k = -1, suffix sorting elapsed ")
+    lms = LmsSorter.get_suffix_array_dna(text, -1, num_threads=8)
+    check(rc == 0 and np.array_equal(
+        lms, k_ordered_suffix_array(text_dev, -1, device="cuda")),
+        "LMS_INDUCED k=-1 SA differs from the in-core SA on the card")
+    say(f"CLI routes n={SMALL_N} (random): suffix_sort -k 256 with "
+        f"KISS_TPU_INCORE_CAP={cap} logged 'routing: {routing[:60]}...' and "
+        f"sorted out of core (K1 launches {routed}), SA equal to the in-core "
+        f"one; -s LMS_INDUCED -k -1 -t 8 elapsed {lms_line} (CLI step "
+        f"{lms_cli_s:.3f} s), LmsSorter SA bit-identical to the in-core "
+        f"k=-1 SA on the card; phase {time.perf_counter() - t_phase:.3f} s")
+    return routed
+
+
+def phase_serve(cli, logs, fa, batch, tmp, q_pattern, found, occ, checksum):
+    """7c: serve on the full-sort archive with an injected stdin."""
+    import io
+
+    t_phase = time.perf_counter()
+    args = cli.build_parser().parse_args(["serve", "-n", "5", fa])
+    missing = os.path.join(tmp, "missing.bin")
+    requests = f"{q_pattern}\nbatch {batch}\nbatch {missing}\nquit\n"
+    out = io.StringIO()
+    del logs.lines[:]
+    cli.serve_main(args, io.StringIO(requests), out)
+    lines = out.getvalue().splitlines()
+    check(len(lines) == 4 and lines[0] == "ready"
+          and lines[1].startswith("ok ") and lines[2].startswith("ok ")
+          and lines[3].startswith("err FileNotFoundError"),
+          f"serve answered {lines}")
+    got = (int(logs.value("number of matched locations: ")),
+           int(logs.value("location checksum: ")))
+    check(got == (occ, checksum),
+          f"serve batch {got} != the oracle's {(occ, checksum)}")
+    check(int(logs.value(f"query = {q_pattern} found ").split()[0]) == found,
+          "serve -q found count differs from fmindex_query's")
+    say(f"serve on the full-sort archive: {lines[0]}; {lines[1]} (-q, found "
+        f"{found}); {lines[2]} (batch of {N_QUERIES}, occ {got[0]} checksum "
+        f"{got[1]}, the oracle's); {lines[3][:60]}...; stopped at quit; "
+        f"phase {time.perf_counter() - t_phase:.3f} s")
+
+
+def phase_general(torch, np, kernels, err, shapes):
+    """7d: the general alphabet on the card. Returns the K1 launches of the
+    general sort of DNA text at k = 256; its seed's keys go to
+    ``shapes``."""
+    from kiss_tpu_torch.ops import pack
+    from kiss_tpu_torch.ops.suffix_sort import (
+        Kiss1Sorter,
+        _make_plan,
+        _normalize_k,
+        _run_plan,
+    )
+    from kiss_tpu_torch.utils.synth import synth_genome
+
+    t_phase = time.perf_counter()
+    dna = synth_genome(SMALL_N, seed=3)
+    kernels.reset_launch_counts()
+    general = Kiss1Sorter.get_suffix_array(dna, 256, device="cuda")
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["radix_sort_words"]
+    check(launches > 0 and np.array_equal(
+        general, Kiss1Sorter.get_suffix_array_dna(dna, 256, device="cuda")),
+        "general-alphabet SA of DNA text differs from the DNA one")
+    n20 = (1 << 20) + 6
+    t20 = np.random.default_rng(20).integers(0, 20, n20, dtype=np.int8)
+    for k in (256, -1):
+        check(np.array_equal(
+            Kiss1Sorter.get_suffix_array(t20, k, device="cuda"),
+            Kiss1Sorter.get_suffix_array(t20, k, device="cpu")),
+            f"20-symbol k={k} SA on the card differs from the CPU's")
+    t20_dev = torch.from_numpy(t20).cuda()
+    for k in (256, -1):
+        plan = _make_plan(n20, _normalize_k(k), pack.GENERAL)
+        _run_plan(t20_dev, plan, pack.GENERAL, sort_impl=compared_k1(err))
+    plan = _make_plan(SMALL_N, 256, pack.GENERAL)
+    _run_plan(torch.from_numpy(dna).cuda(), plan, pack.GENERAL,
+              sort_impl=recorded_k1(shapes, "get_suffix_array k=256"))
+    say(f"general alphabet: get_suffix_array of the {SMALL_N}-char DNA text "
+        f"at k=256 equals get_suffix_array_dna's SA (K1 launches {launches}); "
+        f"a 20-symbol text of {n20} chars at k=256 and -1 equals the CPU's "
+        "(plain versions); every K1 launch of those general sorts vs plain "
+        f"exact; phase {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
+def phase_bfs_edge(torch, np, cli, logs, tmp):
+    """7e: the range BFS at N % 64 == 0 on the card."""
+    from kiss_tpu_torch.models import fm_index as fm
+    from kiss_tpu_torch.utils import codec, fasta
+    from kiss_tpu_torch.utils.synth import sample_patterns, synth_genome
+
+    t_phase = time.perf_counter()
+    n = (1 << 22) - 1
+    text = synth_genome(n, seed=4)
+    fa = os.path.join(tmp, "edge.fa")
+    fasta.write_fasta(fa, [fasta.FastaRecord("edge", text)], width=80)
+    nq = 100_000
+    pats = sample_patterns(text, nq, QLEN, seed=5)
+    batch = os.path.join(tmp, "edge.bin")
+    with open(batch, "wb") as f:
+        f.write(struct.pack("<II", QLEN, nq))
+        f.write(codec.to_string(pats.reshape(-1)).encode())
+    del logs.lines[:]
+    check(cli.main(["fmindex_build", "-k", "32", fa]) == 0, "edge build")
+    meta = fm.read_meta(fa + ".fmi")
+    check(meta is not None and meta.get("full_sa") is False, "edge .meta")
+    check(cli.main(["fmindex_query", "-b", batch, fa]) == 0, "edge -b")
+    got = (int(logs.value("number of matched locations: ")),
+           int(logs.value("location checksum: ")))
+    text_dev = torch.from_numpy(text).cuda()
+    want = oracle_stats(torch, text_dev, torch.from_numpy(pats).cuda())
+    check(got == want, f"BFS -b at N % 64 == 0: {got} != oracle {want}")
+    check(cli.main(["fmindex_query", "-q", "T", "-n", "0", fa]) == 0,
+          "edge -q T")
+    t_found = int(logs.value("query = T found ").split()[0])
+    t_count = int((text_dev == 3).sum())
+    check(t_found == t_count, f"-q T found {t_found} != {t_count}")
+    say(f"range BFS at n={n} (N % 64 == 0), fmindex_build -k 32: -b of {nq} "
+        f"x {QLEN} gives occ {got[0]} checksum {got[1]} (the oracle's); -q T "
+        f"(its range ends at row N) found {t_found}, the count of T; phase "
+        f"{time.perf_counter() - t_phase:.3f} s")
+
+
+def phase_k1_shapes(torch, smi, err, shapes):
+    """K1 at each new launch shape held against its plain version, exact,
+    and timed beside it and its bound. Returns {shape: (ms, plain ms, bound
+    ms, bound by)}."""
+    from kiss_tpu_torch.ops.radix_sort import (
+        radix_sort_words,
+        radix_sort_words_plain,
+    )
+
+    rows = {}
+    for name, keys in shapes.items():
+        got, want = radix_sort_words(keys), radix_sort_words_plain(keys)
+        err["radix_sort_words"] = max(
+            err["radix_sort_words"], exact(got[1], want[1]),
+            exact(got[0], want[0]),
+        )
+        del got, want
+        bound = k1_bound(keys)
+        rows[f"{name} N={keys.shape[1]}"] = (
+            cuda_ms(lambda: radix_sort_words(keys), 5),
+            cuda_ms(lambda: radix_sort_words_plain(keys), 3), *bound,
+        )
+    say(f"K1 at the new launch shapes on {smi}, each equal to the plain "
+        "version (exact), ms, plain ms, bound ms: "
+        + "; ".join(f"{name} {t:.4f}, {p:.4f}, {b:.5f} ({by})"
+                    for name, (t, p, b, by) in rows.items()))
+    return rows
 
 
 def phase_probe_path(torch, kernels):
@@ -492,6 +779,7 @@ def main() -> int:
     from kiss_tpu_torch.experiments import fm_query_time
     from kiss_tpu_torch.experiments import micro_kernels as mk
     from kiss_tpu_torch.experiments import sort_split
+    from kiss_tpu_torch.utils.checks import LogLines, check_k_sorted_sample
     from kiss_tpu_torch.utils.roofline import bound_ms
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
@@ -591,7 +879,7 @@ def main() -> int:
         lambda: k_ordered_suffix_array(text_dev, 256, as_numpy=False,
                                        device=dev)
     )
-    check_k_sorted_sample(torch, text_dev, sa256, 256, 100_000)
+    check_k_sorted_sample(text_dev, sa256, 256, 100_000)
     del sa256
     say(f"main path n={N_TEXT}: occ {occ} and checksum {checksum} equal the "
         f"25-mer oracle; -q found {found}, positions spell the pattern; "
@@ -766,6 +1054,21 @@ def main() -> int:
         f"equal per query; launches {bfs_launches}")
     del fmi32, b32, e32
 
+    # ---- 7a-7e. the out-of-core sorter, the other sort routes, serve, the
+    # general alphabet and the BFS at N % 64 == 0
+    logging.getLogger().addHandler(logs)
+    k1_shapes = {}
+    ext_launches, ext_splits = phase_external(
+        torch, np, cli, kernels, fa, text, text_dev, err, k1_shapes
+    )
+    routed_launches = phase_routes(torch, np, cli, kernels, logs, tmp)
+    phase_serve(cli, logs, fa, batch, tmp, q_pattern, found, occ, checksum)
+    general_launches = phase_general(torch, np, kernels, err, k1_shapes)
+    phase_bfs_edge(torch, np, cli, logs, tmp)
+    logging.getLogger().removeHandler(logs)
+    k1_rows = phase_k1_shapes(torch, smi, err, k1_shapes)
+    del k1_shapes
+
     # ---- 8. the probe path, then the probes against their plain versions
     launches.update(phase_probe_path(torch, kernels))
     ms, plain_ms, library_ms, bounds = {}, {}, {}, {}
@@ -792,12 +1095,6 @@ def main() -> int:
     plain_ms["radix_sort_words"] = cuda_ms(
         lambda: radix_sort_words_plain(w5), 3
     )
-    def k1_bound(keys):
-        """K1 bound: the W key words read and written once, the
-        permutation written (8 bytes a key); one digit step per key byte"""
-        return bound_ms(2 * keys.numel() * 4 + 8 * keys.shape[1],
-                        keys.numel() * 4)
-
     bounds["radix_sort_words"] = k1_bound(w5)
     passes5 = sort_split.digit_passes(w5)
     # beside the bound: what an 8-bit LSD sort of these keys must move, a
@@ -845,6 +1142,20 @@ def main() -> int:
     plain_ms["fm_locate_rows"] = cuda_ms(
         lambda: fm.locate_rows_device_plain(arrays, rows, 4), 20
     )
+    # the plain versions at the other shapes the kernels are timed at
+    qc = qw[:CLI_CHUNK]
+    cb, ce, _ = fm.get_range_packed_device(arrays, qc, QLEN, L, blocks=blocks)
+    other = (
+        cuda_ms(lambda: fm.get_range_packed_device_plain(arrays, qc, QLEN, L),
+                3),
+        cuda_ms(lambda: fm.batch_locate_stats_device_plain(arrays, cb, ce, 4),
+                3),
+        cuda_ms(lambda: fm.locate_rows_device_plain(arrays, rand_rows, 4), 3),
+    )
+    say(f"plain versions on {smi}, ms: K2 chunk {CLI_CHUNK} x {QLEN} "
+        f"{other[0]:.4f}; K3 stats chunk {other[1]:.4f}; K3 rows "
+        f"{N_QUERIES} random {other[2]:.4f}")
+    del qc, cb, ce
     # what the main path spends over the bounds, at the shape it launches:
     # K2 and K3 stats once a 100,000-query chunk (K2 once more for -q's one
     # pattern, counted here at the chunk's gap), K3 rows once for -q
@@ -914,6 +1225,19 @@ def main() -> int:
          "library_ms": library_ms[name]}
         for name, (src, rep) in KERNELS.items()
     ]}
+    # K1's launches on the paths of this slice, and its times at their shapes
+    report["kernels"][0].update({
+        "launches_by_path": {
+            "main path": launches["radix_sort_words"],
+            "suffix_sort --external -k 256": ext_launches,
+            "suffix_sort -k 256 routed out of core": routed_launches,
+            "get_suffix_array k=256": general_launches,
+        },
+        "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
+                          "bound_by": by}
+                   for name, (t, p, b, by) in k1_rows.items()},
+        "external_split_s": ext_splits,
+    })
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,13 @@ k-ordered suffix arrays and k-ordered FM-indexes for genome-scale DNA
 package imports neither JAX nor ``kiss_tpu``.
 
 Public API mirrors ``kiss_tpu``'s module and function names:
-  - suffix sorting: :mod:`kiss_tpu_torch.ops.suffix_sort`
+  - suffix sorting: :mod:`kiss_tpu_torch.ops.suffix_sort` (in-core, DNA
+    and general alphabet), :mod:`kiss_tpu_torch.ops.external_sort`
+    (out-of-core), :mod:`kiss_tpu_torch.ops.lms_native` (host LMS +
+    induced sort)
   - FM-index: :mod:`kiss_tpu_torch.models.fm_index`
   - CLI: ``python -m kiss_tpu_torch suffix_sort|fmindex_build|
-    fmindex_query ... [--device cuda|cpu]``
+    fmindex_query|serve ... [--device cuda|cpu]``
   - hardware probes: ``python -m kiss_tpu_torch.experiments.micro_kernels``
     and ``... micro_copy``
 
@@ -31,6 +34,7 @@ BANNER = (
     + "\n"
 )
 
+from kiss_tpu_torch.ops.lms_native import LmsSorter  # noqa: E402,F401
 from kiss_tpu_torch.ops.suffix_sort import (  # noqa: E402,F401
     Kiss1Sorter,
     Kiss2Sorter,

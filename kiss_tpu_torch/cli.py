@@ -7,14 +7,19 @@ working. One flag is new: ``--device`` (default ``cuda``) names where the
 work runs; a CUDA device that is not there is an error, never a quiet
 move to the CPU.
 
-``fmindex_query`` routes locate by the archive's ``.meta`` sidecar: the
-per-row walk when it records a full sort, the range BFS otherwise
-(``fmindex_build -k N`` archives, archives whose sidecar is absent or
-stale, archives written by the reference binary).
+``suffix_sort`` routes as ``kiss_tpu.cli`` does: ``--external``, or a
+text at or over the in-core capacity derived from the card's memory, goes
+to the out-of-core sorter (``ops.external_sort``, host-staged, batches
+sorted by K1); ``-s LMS_INDUCED`` is the host-resident native sorter and
+never auto-routes. ``fmindex_query`` routes locate by the archive's
+``.meta`` sidecar: the per-row walk when it records a full sort, the range
+BFS otherwise (``fmindex_build -k N`` archives, archives whose sidecar is
+absent or stale, archives written by the reference binary). ``serve``
+answers ``-q`` patterns and ``batch <file>`` requests from one loaded
+index.
 
-Not yet ported (each raises ``NotImplementedError`` naming itself):
-``-s LMS_INDUCED``, ``--external`` and the automatic out-of-core route,
-``-t N`` over more than one visible device, and ``serve``.
+Not yet ported: ``-t N`` over more than one visible device (raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -30,9 +35,12 @@ import torch
 from kiss_tpu_torch import BANNER, VERSION
 from kiss_tpu_torch.models import fm_index as fm_meta
 from kiss_tpu_torch.models.fm_index import FMIndex
+from kiss_tpu_torch.ops import external_sort
+from kiss_tpu_torch.ops.lms_native import LmsSorter
 from kiss_tpu_torch.ops.suffix_sort import (
     Kiss1Sorter,
     Kiss2Sorter,
+    _mesh_size_for,
     _require_single_device,
 )
 from kiss_tpu_torch.utils import codec, fasta, timing
@@ -41,7 +49,7 @@ from kiss_tpu_torch.utils.device import resolve_device
 SORTING_ALGORITHMS = {
     "PARALLEL_SORTING": Kiss1Sorter,
     "PREFIX_DOUBLING": Kiss2Sorter,
-    "LMS_INDUCED": None,  # host LMS sorter: not yet ported
+    "LMS_INDUCED": LmsSorter,
 }
 
 
@@ -106,13 +114,18 @@ def build_parser() -> argparse.ArgumentParser:
         "default). PREFIX_DOUBLING: 16-char super-char seed + 2-key "
         "doubling rounds (kISS-2's prefix doubling re-expressed). "
         "Identical output order either way (exact-k cut, position "
-        "tiebreaks). LMS_INDUCED: not yet ported.",
+        "tiebreaks). LMS_INDUCED: the reference's LMS direct sort + "
+        "induced L/S passes as native host C++ (csrc/kiss_lms.cpp); "
+        "host-resident, -t caps its OpenMP threads, never routed "
+        "out-of-core.",
     )
     ss.add_argument(
         "--external",
         action="store_true",
-        help="use the out-of-core sorter (not yet ported). Texts above "
-        "the in-core capacity derived from device memory are rejected.",
+        help="use the out-of-core sorter (host-staged buckets, each batch "
+        "sorted on the device; -s/-t do not apply). Texts at or above the "
+        "in-core capacity derived from device memory take it "
+        "automatically.",
     )
     ss.add_argument("fasta", help="FASTA/text file path")
 
@@ -167,9 +180,24 @@ def build_parser() -> argparse.ArgumentParser:
     fq.add_argument("fasta", help="FASTA/text file path")
 
     sv = sub.add_parser(
-        "serve", help="long-lived query server (not yet ported)"
+        "serve", help="long-lived query server: load the index once, "
+        "then answer one pattern (or `batch <file>`) per stdin line"
     )
     _add_generic(sv)
+    sv.add_argument(
+        "--assume-full-sa", action="store_true", dest="assume_full_sa",
+        help="same as the fmindex_query flag",
+    )
+    sv.add_argument(
+        "-n", "--headn", type=int, default=10, metavar="NUM",
+        help="print at most this many positions per pattern",
+    )
+    sv.add_argument(
+        "--warm", type=int, default=0, metavar="LEN",
+        help="run one search and locate of a pattern of this length "
+        "before signalling ready (loads the kernel library and touches "
+        "the index on the device)",
+    )
     sv.add_argument("fasta", help="FASTA/text file path")
     return p
 
@@ -220,31 +248,37 @@ def in_core_capacity_chars(device) -> int:
 
 def suffix_sort_main(args) -> None:
     _reject_generic(args)
-    if args.sorting_algorithm == "LMS_INDUCED":
-        raise NotImplementedError(
-            "-s LMS_INDUCED (the host LMS + induced sort, kiss_tpu.ops."
-            "lms_native) is not yet ported to kiss_tpu_torch"
-        )
-    if args.external:
-        raise NotImplementedError(
-            "--external (the out-of-core sorter, kiss_tpu.ops."
-            "external_sort) is not yet ported to kiss_tpu_torch"
-        )
     dev = resolve_device(args.device)
     seq = _read_folded(args.fasta)
     sorter = SORTING_ALGORITHMS[args.sorting_algorithm]
     ref = sorter.prepare_aligned_ref(seq)
-    _require_single_device(args.num_threads, dev)
-    capacity = in_core_capacity_chars(dev)
-    if len(ref) >= capacity:
-        raise NotImplementedError(
-            f"n = {len(ref)} exceeds the in-core device budget "
-            f"({capacity} chars on {dev}); the out-of-core sorter is not "
-            "yet ported to kiss_tpu_torch"
-        )
+    # the multi-device in-core pipeline would split its buffers over the
+    # devices, so the capacity scales with them as in kiss_tpu.cli; -t N
+    # over several devices is not ported, and raises on the in-core route
+    d = _mesh_size_for(args.num_threads, dev)
+    capacity = in_core_capacity_chars(dev) * max(d, 1)
+    # LMS_INDUCED is host-resident (~10 B/char of host RAM, no device
+    # buffers), so the device-memory auto-route does not apply to it;
+    # an explicit --external still wins
+    host_resident = sorter is LmsSorter
     sw = timing.Stopwatch()
-    sorter.get_suffix_array_dna(ref, args.kordered, args.num_threads,
-                                device=dev)
+    if args.external or (len(ref) >= capacity and not host_resident):
+        if not args.external:
+            timing.log_info(
+                "routing: n = %d exceeds the in-core device budget "
+                "(%d chars x %d device(s)); using the out-of-core "
+                "sorter (host-staged; -s/-t do not apply on this path)",
+                len(ref), capacity // max(d, 1), d,
+            )
+        external_sort.external_k_ordered_suffix_array(
+            ref, args.kordered, verbose=timing.debug_enabled(), device=dev
+        )
+    elif host_resident:
+        sorter.get_suffix_array_dna(ref, args.kordered, args.num_threads)
+    else:
+        _require_single_device(args.num_threads, dev)
+        sorter.get_suffix_array_dna(ref, args.kordered, args.num_threads,
+                                    device=dev)
     timing.log_info(
         "n = %d, k = %d, suffix sorting elapsed %.6f",
         len(ref), args.kordered, sw.elapsed(),
@@ -283,8 +317,8 @@ def _ordinal(x: int) -> str:
 
 
 def _load_query_engine(args):
-    """fmindex_query setup: read + load + locate routing. Returns
-    (seq, engine)."""
+    """Shared fmindex_query/serve setup: read + load + locate routing.
+    Returns (seq, engine)."""
     dev = resolve_device(args.device)
     seq = _read_folded(args.fasta)
     _require_single_device(args.num_threads, dev)
@@ -360,11 +394,43 @@ def fmindex_query_main(args) -> None:
         _batch_query(engine, args.batch)
 
 
-def serve_main(args) -> None:
-    raise NotImplementedError(
-        "serve (the long-lived query loop of kiss_tpu.cli) is not yet "
-        "ported to kiss_tpu_torch; use fmindex_query -q / -b"
-    )
+def serve_main(args, stdin=None, stdout=None) -> None:
+    """Long-lived query loop: the FASTA and the index are read and put on
+    the device once, and each stdin line is one request -- a pattern (the
+    ``-q`` path) or ``batch <file>`` (the ``-b`` path). Prints ``ready``,
+    then ``ok <seconds>`` after each request, or ``err <Type>: <msg>``
+    after a failed one, and keeps serving; an empty line, ``quit`` or
+    ``exit`` stops it. ``stdin``/``stdout`` are injectable for tests."""
+    _reject_generic(args)
+    stdin = stdin if stdin is not None else sys.stdin
+    stdout = stdout if stdout is not None else sys.stdout
+    seq, engine = _load_query_engine(args)
+    if args.warm > 0:
+        # one search + locate of this length: the first request then finds
+        # the kernel library loaded
+        warm = codec.to_string(seq[: args.warm]) if len(seq) >= args.warm \
+            else "A" * args.warm
+        iq = codec.fold_to_acgt(codec.to_istring(warm))
+        beg, end, _ = engine.get_range(iq)
+        engine.get_offsets(beg, end)
+    print("ready", file=stdout, flush=True)
+    for line in stdin:
+        line = line.strip()
+        if not line or line in ("quit", "exit"):
+            break
+        sw = timing.Stopwatch()
+        # one bad request (missing batch file, malformed pattern) must
+        # not end the server: report `err <reason>` and keep serving
+        try:
+            if line.startswith("batch "):
+                _batch_query(engine, line[len("batch "):].strip())
+            else:
+                _single_query(engine, seq, line, args.headn)
+        except Exception as e:  # noqa: BLE001 -- protocol boundary
+            timing.log_info("serve: request failed: %s", e)
+            print(f"err {type(e).__name__}: {e}", file=stdout, flush=True)
+            continue
+        print(f"ok {sw.elapsed():.3f}", file=stdout, flush=True)
 
 
 COMMANDS = {

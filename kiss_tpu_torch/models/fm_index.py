@@ -369,17 +369,22 @@ def _lf_all4(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
 
 def _b_rank(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:
     """Vectorized compute_b_occ (reference: fm_index.hpp:189-208): marks
-    in rows [0, i) from one ``b_tab`` row."""
+    in rows [0, i) from one ``b_tab`` row. ``b_tab`` has no row for a
+    block that starts at row N (N a multiple of 64), which a range
+    endpoint reaches: there the count is that of all marks, as in
+    :func:`block_table`."""
+    rows = idx.b_tab.shape[0]
     blk = i // B_OCC_INTV
     off = i - blk * B_OCC_INTV  # 0..63
-    row = pack.as_u32(idx.b_tab[blk])
+    past = blk >= rows
+    row = pack.as_u32(idx.b_tab[torch.clamp(blk, max=rows - 1)])
     one = torch.ones_like(off)
     m0 = (one << torch.clamp(off, max=32)) - 1
     m1 = (one << torch.clamp(off - 32, min=0)) - 1
     cnt = pack.popcount_u32(row[..., 1] & m0) + pack.popcount_u32(
         row[..., 2] & m1
     )
-    return row[..., 0] + cnt
+    return torch.where(past, idx.sa_samp.shape[0], row[..., 0] + cnt)
 
 
 def _b_at(idx: FMArrays, i: torch.Tensor) -> torch.Tensor:

@@ -90,6 +90,25 @@ def radix_sort_words(keys: torch.Tensor):
     return _radix_sort_words_cuda(keys)
 
 
+def radix_sort_wide(keys: torch.Tensor):
+    """:func:`radix_sort_words` for any number of words: more than
+    MAX_WORDS are sorted as groups of at most MAX_WORDS words, the least
+    significant group first, each group's stable sort taking the keys in
+    the order the one before left them (LSD over word groups). Same
+    output contract: (sorted words, permutation)."""
+    W = keys.shape[0]
+    if W <= MAX_WORDS:
+        return radix_sort_words(keys)
+    perm = None
+    for hi in range(W, 0, -MAX_WORDS):
+        group = keys[max(hi - MAX_WORDS, 0) : hi]
+        if perm is not None:
+            group = group[:, perm]
+        _, p = radix_sort_words(group.contiguous())
+        perm = p if perm is None else perm[p]
+    return keys[:, perm], perm
+
+
 def digit_counts_cuda(keys: torch.Tensor) -> torch.Tensor:
     """``counts[w, b, d]`` of a CUDA key set (int32 [W, 4, 256], on the
     card): one kernel over all W words. Input of :func:`pass_plan` and the

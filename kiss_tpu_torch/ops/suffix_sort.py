@@ -23,8 +23,9 @@ Unbounded k (-1) runs one full-array round, then refines only the
 suffixes still in tie groups (``_tail_refine``) until none is left.
 
 Every multi-word sort goes through ``sort_impl``, by default the
-hand-written CUDA radix sort (:func:`radix_sort_words`, kernel K1) on a
-CUDA device and its plain PyTorch version on the CPU. Positions and ranks
+hand-written CUDA radix sort (:func:`radix_sort_words`, kernel K1; more
+than 9 words as stable sorts of word groups, :func:`radix_sort_wide`) on
+a CUDA device and its plain PyTorch version on the CPU. Positions and ranks
 are int64; the SA that leaves the device is uint32 as in the reference.
 """
 
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from kiss_tpu_torch.ops import pack
-from kiss_tpu_torch.ops.radix_sort import radix_sort_words
+from kiss_tpu_torch.ops.radix_sort import radix_sort_wide
 from kiss_tpu_torch.utils import timing
 from kiss_tpu_torch.utils.device import resolve_device
 
@@ -302,7 +303,7 @@ def _ranks_of_sorted(sorted_keys, sa: torch.Tensor):
 
 
 def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
-               sort_impl=radix_sort_words):
+               sort_impl=radix_sort_wide):
     """Sort of all n+1 suffixes by the first ``seed_chars`` characters
     (shorter-first at end of text, then ascending position -- the full
     reference comparator contract, kiss1_core.hpp:94-135). Returns
@@ -313,12 +314,22 @@ def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
     end-of-text rule with the position (:func:`pack.fused_end_pos`), run
     as one total-order sort: 5 words for the standard 64-char seed.
     """
-    if alphabet is not pack.DNA:
-        raise NotImplementedError(
-            "the general alphabet (get_suffix_array) is not yet ported to "
-            "kiss_tpu_torch; DNA only"
-        )
     n = text.shape[0]
+    if alphabet is not pack.DNA:
+        # 10-bit characters, 3 to a word, past-end 0 (the end-of-text rule
+        # is in the words), and the position as the last key: a total
+        # order, so the stable sort of the JAX package gives the same SA
+        words = pack.suffix_key_words(text, seed_chars, 0, alphabet)
+        words.append(_positions(n + 1, text.device)())
+        keys = torch.stack([pack.to_u32_bits(w) for w in words])
+        del words
+        ops, _ = sort_impl(keys)
+        del keys
+        sa = pack.as_u32(ops[-1])
+        if not with_rank:
+            return sa, sa, True
+        rank, done = _ranks_of_sorted(list(ops[:-1]), sa)
+        return sa, rank, done
     words2 = pack.suffix_key_words_2bit(text, seed_chars, 0)
     fused = pack.fused_end_pos(n, seed_chars, text.device)
     fbits = max(int(n).bit_length(), 1)
@@ -342,7 +353,7 @@ def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
 
 
 def _full_round(text, rank, cover: int, n_keys: int, with_rank: bool,
-                sort_impl=radix_sort_words):
+                sort_impl=radix_sort_wide):
     """One wide sort by ``n_keys`` shifted copies of the current rank
     level at offsets 0, cover, 2*cover, ... -- covering n_keys*cover
     characters."""
@@ -387,7 +398,7 @@ def _compact_rows(active, capacity: int):
 
 
 def _tail_refine(sa, rank, rows, m: int, cover: int,
-                 sort_impl=radix_sort_words):
+                 sort_impl=radix_sort_wide):
     """One compacted refinement round for the deep tail of an unbounded
     sort: re-sorts only the m suffixes still in tie groups (``rows``:
     their ascending row ids, zero-filled) by MAX_RANK_KEYS shifted rank
@@ -431,7 +442,7 @@ def _tail_refine(sa, rank, rows, m: int, cover: int,
 
 def _rank_block_sort(text, ranks: dict, rank_key_spec, tail_chars: int,
                      tail_offset: int, alphabet, with_rank: bool,
-                     sort_impl=radix_sort_words):
+                     sort_impl=radix_sort_wide):
     """One wide sort by shifted rank-level keys (+ optional raw tail
     words). ``ranks`` maps level -> position-major rank;
     ``rank_key_spec`` is ((level, offset), ...)."""
@@ -486,7 +497,7 @@ def _is_full(rnd: _Round, cover: int) -> bool:
 
 
 def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
-              sort_impl=radix_sort_words):
+              sort_impl=radix_sort_wide):
     """Run a sort plan from the host: seed, then rounds until the plan ends
     or every suffix is a singleton group. With ``refine_tail`` an
     unbounded plan switches to compacted tail refinement after
@@ -707,9 +718,9 @@ class _SorterBase:
 
     @classmethod
     def get_suffix_array(cls, ref, k=256, num_threads=None, device="cuda"):
-        raise NotImplementedError(
-            "the general alphabet (get_suffix_array) is not yet ported to "
-            "kiss_tpu_torch; use get_suffix_array_dna"
+        _require_single_device(num_threads, device)
+        return k_ordered_suffix_array(
+            ref, k, pack.GENERAL, strategy=cls.strategy, device=device
         )
 
 

@@ -83,6 +83,14 @@ def _load():
         lib.ki_unpack_dibits.argtypes = [u8p, ctypes.c_int64, i8p]
         lib.ki_pack_bits.restype = None
         lib.ki_pack_bits.argtypes = [u8p, ctypes.c_int64, u64p]
+        if hasattr(lib, "ki_lms_induced_sort"):
+            i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+            lib.ki_lms_induced_sort.restype = ctypes.c_int
+            lib.ki_lms_induced_sort.argtypes = [
+                i8p, ctypes.c_int64, ctypes.c_int64, i64p,
+            ]
+            lib.ki_set_threads.restype = None
+            lib.ki_set_threads.argtypes = [ctypes.c_int]
         _lib = lib
         return _lib
 
@@ -119,3 +127,27 @@ def pack_dibits(vals: np.ndarray) -> np.ndarray | None:
     out = np.empty((len(vals) + 3) // 4, dtype=np.uint8)
     lib.ki_pack_dibits(vals, len(vals), out)
     return out
+
+
+def set_threads(n: int) -> None:
+    """Cap OpenMP threads for native sort stages (the -t knob)."""
+    lib = _load()
+    if lib is not None and hasattr(lib, "ki_set_threads"):
+        lib.ki_set_threads(n)
+
+
+def lms_induced_sort(seq: np.ndarray, k: int) -> np.ndarray | None:
+    """Native LMS + induced k-ordered suffix sort (csrc/kiss_lms.cpp),
+    or None if the library is unavailable. ``k = -1`` = full sort.
+    Returns the n+1-slot SA as int64 (callers narrow the dtype)."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "ki_lms_induced_sort"):
+        return None
+    seq = np.ascontiguousarray(seq, dtype=np.int8)
+    sa = np.empty(len(seq) + 1, dtype=np.int64)
+    rc = lib.ki_lms_induced_sort(seq, len(seq), k, sa)
+    if rc != 0:
+        raise ValueError(
+            f"ki_lms_induced_sort rejected n={len(seq)}, k={k} (rc={rc})"
+        )
+    return sa

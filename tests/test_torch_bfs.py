@@ -214,3 +214,76 @@ def test_load_reference_fmi_and_query(name):
     assert offs == 0 and end - beg == len(hits)
     np.testing.assert_array_equal(np.sort(fmi.get_offsets(beg, end)),
                                   np.sort(hits))
+
+
+def _oracle_stats(text, queries):
+    hits = [oracle.search_all(text, q) for q in queries]
+    return sum(len(h) for h in hits), sum(int(h.sum()) for h in hits)
+
+
+def _edge_queries(text):
+    """Every one-symbol query (their ranges reach row N) and 5-mers from
+    the start, middle and end of the text."""
+    n = len(text)
+    fives = np.stack([text[s : s + 5] for s in (0, n // 2, n - 5)])
+    return np.arange(4, dtype=np.int8)[:, None], fives
+
+
+@pytest.mark.parametrize("sa_intv", [2, 4])
+@pytest.mark.parametrize("n", [63, 127, 1023])
+def test_bfs_at_n_plus_one_multiple_of_64(n, sa_intv):
+    """N = n + 1 a multiple of 64: a range endpoint at row N has no b_tab
+    row (b_tab keeps kiss_tpu's ceil(N / 64) rows); its mark rank is the
+    count of all marks. Positions and stats of a 32-ordered build, and
+    of its archive loaded without a ``.meta``, equal the brute-force
+    oracle's (kiss_tpu clamps that gather and answers wrongly here)."""
+    text = oracle.random_dna(n, seed=n)
+    built = tfm.FMIndex(sa_intv=sa_intv, device="cpu").build(text,
+                                                            sort_len=32)
+    assert built.arrays.b_tab.shape[0] == (n + 1) // 64
+    buf = io.BytesIO()
+    built.save(buf)
+    loaded = tfm.FMIndex(sa_intv=sa_intv, device="cpu").load(
+        io.BytesIO(buf.getvalue())
+    )
+    for fmi in (built, loaded):
+        assert fmi._routes_to_bfs()
+        for q in _edge_queries(text):
+            assert fmi.batch_query_stats(q) == _oracle_stats(text, q)
+            lens, pos, _ = fmi.batch_query(q)
+            starts = np.concatenate([[0], np.cumsum(lens)])
+            for qi in range(len(q)):
+                np.testing.assert_array_equal(
+                    np.sort(pos[starts[qi] : starts[qi + 1]]),
+                    oracle.search_all(text, q[qi]),
+                )
+
+
+def test_cli_bfs_at_n_plus_one_multiple_of_64(tmp_path, caplog):
+    """The CLI pair: ``fmindex_build -k 32`` of a 127-character genome,
+    then ``fmindex_query -b`` and ``-q`` through the range BFS."""
+    import logging
+
+    from kiss_tpu_torch import cli as tcli
+    from kiss_tpu_torch.utils import codec, fasta
+
+    text = oracle.random_dna(127, seed=127)
+    fa = str(tmp_path / "g.fa")
+    fasta.write_fasta(fa, [fasta.FastaRecord("g", text)])
+    rng = np.random.default_rng(3)
+    pats = [text[s : s + 25] for s in rng.integers(0, 127 - 25, 3)]
+    bpath = str(tmp_path / "p.bin")
+    with open(bpath, "wb") as f:
+        f.write(struct.pack("<II", 25, len(pats)))
+        f.write("".join(codec.to_string(p) for p in pats).encode())
+    cpu = ["--device", "cpu", fa]
+    assert tcli.main(["fmindex_build", "-k", "32", *cpu]) == 0
+    with caplog.at_level(logging.INFO, logger="kiss_tpu_torch"):
+        assert tcli.main(["fmindex_query", "-b", bpath, *cpu]) == 0
+        assert tcli.main(["fmindex_query", "-q", "T", "-n", "0", *cpu]) == 0
+    msgs = [r.getMessage() for r in caplog.records]
+    occ, checksum = _oracle_stats(text, pats)
+    assert f"number of matched locations: {occ}" in msgs
+    assert f"location checksum: {checksum}" in msgs
+    t_hits = len(oracle.search_all(text, np.array([3], np.int8)))
+    assert f"query = T found {t_hits} times" in msgs

@@ -1,8 +1,10 @@
 """The slice as a whole: ``kiss_tpu_torch.cli.main(... --device cpu)``
 against ``kiss_tpu.cli.main`` on one FASTA -- equal log lines (timings
-masked), equal ``.fmi`` bytes and ``.meta`` sidecars -- plus the port's
-device rule and the commands and flags that are not yet ported."""
+masked), equal ``.fmi`` bytes and ``.meta`` sidecars -- the sort routes
+(``--external``, the automatic out-of-core route, ``-s LMS_INDUCED``),
+``serve``, the port's device rule and what is not yet ported."""
 
+import io
 import json
 import logging
 import os
@@ -16,7 +18,10 @@ import torch
 
 from kiss_tpu import cli as jcli
 from kiss_tpu_torch import cli as tcli
+from kiss_tpu_torch.ops import external_sort as ext
+from kiss_tpu_torch.ops import suffix_sort as tss
 from kiss_tpu_torch.utils import codec, fasta
+from kiss_tpu_torch.utils.checks import Kept
 from tests import oracle
 
 torch.set_num_threads(1)
@@ -104,19 +109,100 @@ def test_cuda_without_cuda_raises(corpus):
 
 
 def test_not_yet_ported_raise(corpus, monkeypatch):
+    """What is left unported raises: ``-t N`` over several devices (two
+    devices made visible to the planner), on every command that would
+    run in-core; ``--generic`` is rejected on every command, as by the
+    reference. The out-of-core route ignores ``-t``, as in kiss_tpu."""
     _, tfa, _, _ = corpus
     cpu = ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="LMS_INDUCED"):
-        tcli.main(["suffix_sort", "-s", "lms_induced", *cpu, tfa])
-    with pytest.raises(NotImplementedError, match="external"):
-        tcli.main(["suffix_sort", "--external", *cpu, tfa])
-    with pytest.raises(NotImplementedError, match="serve"):
-        tcli.main(["serve", *cpu, tfa])
-    monkeypatch.setattr(tcli, "in_core_capacity_chars", lambda device: 1000)
-    with pytest.raises(NotImplementedError, match="in-core device budget"):
-        tcli.main(["suffix_sort", *cpu, tfa])
-    with pytest.raises(SystemExit):
-        tcli.main(["suffix_sort", "-g", *cpu, tfa])
+    for cmd in ("suffix_sort", "fmindex_build", "fmindex_query", "serve"):
+        with pytest.raises(SystemExit):
+            tcli.main([cmd, "-g", *cpu, tfa])
+    monkeypatch.setattr(tss, "_mesh_size_for", lambda num_threads, device: 2)
+    for argv in (["suffix_sort"], ["fmindex_build"],
+                 ["fmindex_query", "-q", "ACGT"]):
+        with pytest.raises(NotImplementedError, match="several CUDA devices"):
+            tcli.main([*argv, "-t", "2", *cpu, tfa])
+    assert tcli.main(["suffix_sort", "--external", "-t", "2", *cpu, tfa]) == 0
+
+
+@pytest.mark.parametrize("argv,cap", [
+    (["suffix_sort", "--external", "-k", "256"], None),
+    (["suffix_sort", "--external", "-k", "100", "-s", "prefix_doubling"],
+     None),
+    (["suffix_sort", "-k", "256"], "5000"),  # over capacity: routed
+    (["suffix_sort", "-k", "-1"], "20000"),  # n == capacity: routed
+])
+def test_external_routes_match_kiss_tpu(corpus, caplog, monkeypatch, argv,
+                                         cap):
+    """``--external`` and the automatic route (KISS_TPU_INCORE_CAP at or
+    under n) give kiss_tpu.cli's log lines, the ``routing:`` line
+    included, and the SA the port's out-of-core sorter returns is the
+    in-core one."""
+    import kiss_tpu.ops.external_sort as jext
+
+    if cap:
+        monkeypatch.setenv("KISS_TPU_INCORE_CAP", cap)
+    with Kept(jext, "external_k_ordered_suffix_array") as jkept, \
+            Kept(ext, "external_k_ordered_suffix_array") as tkept:
+        lines = _both(corpus, caplog, argv)
+    jkept, tkept = jkept.values, tkept.values
+    assert (lines[0].startswith("routing: n = 20000 exceeds the in-core "
+                                f"device budget ({cap} chars x 1 device(s))")
+            == bool(cap))
+    assert len(jkept) == len(tkept) == 1
+    k = int(argv[argv.index("-k") + 1])
+    np.testing.assert_array_equal(tkept[0], jkept[0])
+    np.testing.assert_array_equal(
+        tkept[0], tss.k_ordered_suffix_array(corpus[3], k, device="cpu")
+    )
+
+
+def test_lms_never_autoroutes(corpus, caplog, monkeypatch):
+    """Host-resident ``-s LMS_INDUCED`` under a capacity far below n: no
+    out-of-core route, the log lines of kiss_tpu.cli, ``-t`` as threads
+    (no device count check)."""
+    monkeypatch.setenv("KISS_TPU_INCORE_CAP", "10")
+
+    def boom(*args, **kwargs):
+        raise AssertionError("LMS_INDUCED was routed out-of-core")
+
+    monkeypatch.setattr(ext, "external_k_ordered_suffix_array", boom)
+    monkeypatch.setattr(tss, "_mesh_size_for", lambda num_threads, device: 2)
+    lines = _both(corpus, caplog,
+                  ["suffix_sort", "-s", "lms_induced", "-k", "16", "-t", "2"])
+    assert lines == ["n = 20000, k = 16, suffix sorting elapsed <t>"]
+
+
+def test_serve_matches_kiss_tpu(corpus, caplog, tmp_path):
+    """``serve`` with an injected stdin: a pattern, ``batch <file>``, a
+    missing batch file and ``quit`` answer ``ready`` / ``ok`` / ``ok`` /
+    ``err ...`` and stop, with kiss_tpu.cli.serve_main's log lines."""
+    jfa, tfa, bpath, text = corpus
+    _both(corpus, caplog, ["fmindex_build"])
+    pattern = codec.to_string(text[700:716])
+    requests = (f"{pattern}\nbatch {bpath}\n"
+                f"batch {tmp_path / 'missing.bin'}\nquit\nACGT\n")
+
+    def serve(mod, logger, argv):
+        args = mod.build_parser().parse_args(["serve", *argv])
+        out = io.StringIO()
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger=logger):
+            mod.serve_main(args, io.StringIO(requests), out)
+        logs = [re.sub(r"\d+\.\d+", "<t>", r.getMessage())
+                for r in caplog.records if r.name == logger]
+        return re.sub(r"\d+\.\d+", "<t>", out.getvalue()).splitlines(), logs
+
+    want = serve(jcli, "kiss_tpu", ["--warm", "12", "-n", "4", jfa])
+    got = serve(tcli, "kiss_tpu_torch",
+                ["--warm", "12", "-n", "4", "--device", "cpu", tfa])
+    assert got == want
+    out, logs = got
+    assert out[:3] == ["ready", "ok <t>", "ok <t>"]
+    assert out[3].startswith("err FileNotFoundError: ") and len(out) == 4
+    hits = oracle.search_all(text, codec.to_istring(pattern))
+    assert logs[0] == f"query = {pattern} found {len(hits)} times"
 
 
 def test_in_core_capacity(monkeypatch):

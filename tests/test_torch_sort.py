@@ -14,6 +14,7 @@ from kiss_tpu.ops import pack as jpack
 from kiss_tpu.ops import suffix_sort as jss
 from kiss_tpu_torch.ops import suffix_sort as tss
 from kiss_tpu_torch.ops.radix_sort import (
+    radix_sort_wide,
     radix_sort_words,
     radix_sort_words_plain,
 )
@@ -58,6 +59,20 @@ def test_radix_stable_payload():
     np.testing.assert_array_equal(payload[perm.numpy()], payload[order])
 
 
+@pytest.mark.parametrize("w,high", [(10, 2**32), (19, 3)])
+def test_radix_wide_equals_lexsort(w, high):
+    """More than 9 words: stable K1 sorts of word groups, least
+    significant group first, give lexsort's permutation."""
+    rng = np.random.default_rng(w)
+    n = 3000
+    keys = rng.integers(0, high, (w, n), dtype=np.uint64).astype(np.uint32)
+    order = np.lexsort([np.arange(n)] + [keys[i] for i in range(w - 1, -1,
+                                                                 -1)])
+    sk, perm = radix_sort_wide(_bits(keys))
+    np.testing.assert_array_equal(perm.numpy(), order)
+    np.testing.assert_array_equal(sk.numpy().view(np.uint32), keys[:, order])
+
+
 def test_radix_rejects_bad_input():
     with pytest.raises(TypeError):
         radix_sort_words(torch.zeros((2, 5), dtype=torch.int64))
@@ -79,6 +94,38 @@ def test_sa_bit_identical_to_kiss_tpu(k, strategy):
         want = jss.k_ordered_suffix_array(text, k, strategy=strategy)
         got = tss.k_ordered_suffix_array(text, k, strategy=strategy,
                                          device="cpu")
+        assert got.dtype == np.uint32
+        np.testing.assert_array_equal(got, want, err_msg=f"{name} k={k}")
+
+
+def test_wide_round_bit_identical_to_kiss_tpu():
+    """k = 4095 over repeats longer than k: the last round sorts 14 rank
+    keys and 63 raw tail characters, 16 packed words, above K1's 9."""
+    text = oracle.repeat_heavy_dna(20_000, unit=3000, seed=1)
+    np.testing.assert_array_equal(
+        tss.k_ordered_suffix_array(text, 4095, device="cpu"),
+        jss.k_ordered_suffix_array(text, 4095),
+    )
+
+
+def _general_texts():
+    rng = np.random.default_rng(23)
+    tandem = np.tile(rng.integers(0, 256, 300), 7)[:N_TEXT]
+    tandem[rng.integers(0, N_TEXT, 10)] = 0
+    return {
+        "20 symbols": rng.integers(0, 20, N_TEXT).astype(np.int8),
+        "bytes, tandem": tandem.astype(np.uint8).view(np.int8),
+    }
+
+
+@pytest.mark.parametrize("sorter", ["Kiss1Sorter", "Kiss2Sorter"])
+@pytest.mark.parametrize("k", [16, 100, 256, -1])
+def test_general_alphabet_bit_identical_to_kiss_tpu(k, sorter):
+    """get_suffix_array (10-bit characters, a 12-character seed for the
+    wide strategy, 3 for doubling) equals kiss_tpu's."""
+    for name, text in _general_texts().items():
+        got = getattr(tss, sorter).get_suffix_array(text, k, device="cpu")
+        want = getattr(jss, sorter).get_suffix_array(text, k)
         assert got.dtype == np.uint32
         np.testing.assert_array_equal(got, want, err_msg=f"{name} k={k}")
 
@@ -125,8 +172,10 @@ def test_sorter_facades_and_limits():
                                              device="cpu")
     np.testing.assert_array_equal(a, b)  # -t 8 clamps to the one CPU
     np.testing.assert_array_equal(a, oracle.k_ordered_sa(text, 80))
-    with pytest.raises(NotImplementedError, match="general alphabet"):
-        tss.Kiss1Sorter.get_suffix_array(text, 16, device="cpu")
+    # the general-alphabet entry orders DNA text the same way
+    np.testing.assert_array_equal(
+        tss.Kiss1Sorter.get_suffix_array(text, 80, device="cpu"), a
+    )
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 17])

@@ -33,7 +33,9 @@ def test_imports_without_jax():
         "import kiss_tpu_torch.utils.native, kiss_tpu_torch.utils.timing\n"
         "import kiss_tpu_torch.experiments.micro_kernels\n"
         "import kiss_tpu_torch.experiments.micro_copy\n"
-        "import kiss_tpu_torch.utils.synth\n"
+        "import kiss_tpu_torch.utils.synth, kiss_tpu_torch.utils.xbit\n"
+        "import kiss_tpu_torch.utils.records, kiss_tpu_torch.ops.lms_native\n"
+        "import kiss_tpu_torch.ops.external_sort\n"
         "bad = [m for m in sys.modules if m == 'kiss_tpu' or "
         "m.startswith('kiss_tpu.')]\n"
         "assert not bad, bad\n"
