@@ -59,7 +59,21 @@ exits non-zero and prints no result line):
   7e. the range BFS at N % 64 == 0: ``fmindex_build -k 32`` at n =
      2**22 - 1, then ``-b`` (the oracle's occurrences and checksum) and
      ``-q T`` (a range that ends at row N);
-     then K1 timed at each new launch shape (external seed batch, round
+  7f. the mesh of ``kiss_tpu_torch.parallel`` at full width, its shards
+     on this one card (``make_mesh(devices=[cuda:0] * D)``), each step
+     with the launch counters reset just before and read just after:
+     ``sharded_k_ordered_suffix_array`` at k = 256 and -1 by columnsort
+     (D = 4), bitonic (D = 2) and sample sort (D = 4), each SA
+     bit-identical to the single-device SA; ``build_index_sharded`` +
+     ``trim_canonical`` (D = 4), its ``.fmi`` bytes those of the
+     single-device build; ``ShardedFMQuery.batch_query_stats`` of the 1M
+     batch (the oracle's count and checksum) and ``sharded_batch_query``
+     (K2 on each shard; the single-device K2 ranges), with each step's
+     seconds, K1 and K2 launches and peak bytes; then each sort and build
+     step again, untimed, with every local sort held against K1's plain
+     version and K1 timed at each (W, N) of the k = 256 sorts and the
+     build; K2 timed at the shard's launch shape; before the mesh, K1
+     timed at each new launch shape of 7a-7d (external seed batch, round
      segment, general seed);
   8. the probe path: ``kiss_tpu_torch.experiments.micro_kernels`` and
      ``micro_copy`` through their ``main`` at the probes' own size
@@ -607,6 +621,190 @@ def phase_bfs_edge(torch, np, cli, logs, tmp):
         f"{time.perf_counter() - t_phase:.3f} s")
 
 
+def phase_mesh(torch, np, kernels, fa, text_dev, pats, qw, single, occ,
+               checksum, err, smi):
+    """7f: the mesh of kiss_tpu_torch.parallel with its shards on one card
+    (``make_mesh(devices=[cuda:0] * D)``), at full width, each step held
+    against the single-device run of this process. ``single`` is the
+    loaded single-device index (its arrays and block table). Each sort
+    and build step then runs once more, untimed, with every local sort
+    held against K1's plain version; the first block of each (step, W, N)
+    of the k = 256 sorts and of the build is timed there. Returns ({step:
+    (seconds, K1 launches, K2 launches, peak bytes)}, the K1 rows and the
+    K2 rows: {shape: (ms, plain ms, bound ms, bound by)})."""
+    import io
+
+    from kiss_tpu_torch.experiments import fm_query_time
+    from kiss_tpu_torch.models import fm_index as fm
+    from kiss_tpu_torch.ops.radix_sort import (
+        radix_sort_wide,
+        radix_sort_words_plain,
+    )
+    from kiss_tpu_torch.ops.suffix_sort import k_ordered_suffix_array
+    from kiss_tpu_torch.parallel import (
+        dsort,
+        fm_build,
+        fm_sharded,
+        make_mesh,
+        sharded_batch_query,
+        ssort,
+    )
+
+    t_phase = time.perf_counter()
+    dev = text_dev.device
+    want_sa = {k: k_ordered_suffix_array(text_dev, k, as_numpy=False,
+                                         device=dev) for k in (256, -1)}
+    steps = {}
+
+    def step(name, fn):
+        """Run ``fn`` with the launch counters set to 0 just before and
+        read just after, and the peak bytes reset."""
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out, seconds = wall_s(fn)
+        steps[name] = (seconds, kernels.LAUNCHES["radix_sort_words"],
+                       kernels.LAUNCHES["fm_backward_search"],
+                       torch.cuda.max_memory_allocated())
+        return out
+
+    def fmi_bytes(arrays):
+        built = fm.FMIndex(sa_intv=4, lookup_len=0, arrays=arrays, n_rows=N,
+                           device=dev)
+        buf = io.BytesIO()
+        built.save(buf)
+        return buf.getvalue()
+
+    lsort = dsort._lsort
+    k1_rows, compared = {}, [0]
+
+    def compared_lsort(label, timed):
+        """The mesh modules' local sort as K1 held against its plain
+        version, exact; with ``timed`` each new (W, N) is timed too."""
+        def sort(block):
+            block = block.contiguous()
+            got = radix_sort_wide(block)
+            want = radix_sort_words_plain(block)
+            err["radix_sort_words"] = max(
+                err["radix_sort_words"], exact(got[1], want[1]),
+                exact(got[0], want[0]),
+            )
+            compared[0] += 1
+            W, n_keys = block.shape
+            name = f"{label} W={W} N={n_keys}"
+            if timed and name not in k1_rows:
+                k1_rows[name] = (
+                    cuda_ms(lambda: radix_sort_wide(block), 5),
+                    cuda_ms(lambda: radix_sort_words_plain(block), 3),
+                    *k1_bound(block),
+                )
+            return got[0]
+        return sort
+
+    def run_compared(label, timed, fn):
+        """``fn()`` again, untimed, every local sort of dsort and ssort
+        through :func:`compared_lsort`"""
+        dsort._lsort = ssort._lsort = compared_lsort(label, timed)
+        try:
+            return fn()
+        finally:
+            dsort._lsort = ssort._lsort = lsort
+
+    mesh_sorts = []
+    for algo, D in (("columnsort", 4), ("bitonic", 2), ("sample", 4)):
+        mesh = make_mesh(devices=[dev] * D)
+        for k in (256, -1):
+            name = f"sharded_k_ordered_suffix_array {algo} D={D} k={k}"
+
+            def sort(mesh=mesh, k=k, algo=algo):
+                return dsort.sharded_k_ordered_suffix_array(
+                    mesh, text_dev, k, algorithm=algo)
+
+            sa = step(name, sort)
+            check(torch.equal(sa, want_sa[k]),
+                  f"{name}: SA differs from the single-device SA")
+            check(steps[name][1] > 0, f"{name}: K1 never launched")
+            del sa
+            mesh_sorts.append((f"mesh {algo} D={D} k={k}", k == 256, k, sort))
+
+    mesh = make_mesh(devices=[dev] * 4)
+    N = text_dev.shape[0] + 1
+
+    def build():
+        return fm_build.trim_canonical(fm_build.build_index_sharded(
+            mesh, text_dev, want_sa[-1], 4), N, 4)
+
+    arrays = step("build_index_sharded + trim_canonical D=4", build)
+    check(steps["build_index_sharded + trim_canonical D=4"][1] > 0,
+          "the sharded build never launched K1")
+    with open(fa + ".fmi", "rb") as f:
+        want_fmi = f.read()
+    check(fmi_bytes(arrays) == want_fmi, "the sharded build's .fmi bytes "
+          "differ from the single-device build's")
+    del arrays
+
+    # every local sort of the sort and build steps against K1's plain
+    # version, in runs of their own, so that the timed steps above carry
+    # neither the plain sorts nor the timing of new shapes
+    for label, timed, k, sort in mesh_sorts:
+        check(torch.equal(run_compared(label, timed, sort), want_sa[k]),
+              f"{label}: SA differs in the compared run")
+    check(fmi_bytes(run_compared("mesh build D=4", True, build)) == want_fmi,
+          "the sharded build's .fmi bytes differ in the compared run")
+    del want_sa, want_fmi, mesh_sorts
+
+    query = fm_sharded.ShardedFMQuery(mesh, single)
+    stats = step("ShardedFMQuery.batch_query_stats D=4 (1M x 25)",
+                 lambda: query.batch_query_stats(pats))
+    check(stats == (occ, checksum), f"row-sharded stats {stats} != the "
+          f"oracle's {(occ, checksum)}")
+    del query
+    name = "sharded_batch_query D=4 (1M x 25, K2 a shard)"
+    got = step(name, lambda: sharded_batch_query(mesh, single.arrays, pats, 0,
+                                                 blocks=single.blocks))
+    want = fm.get_range_packed_device(single.arrays, qw, QLEN, 0,
+                                      blocks=single.blocks)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "sharded_batch_query ranges differ from single-device K2's")
+    check(steps[name][2] == 4, f"{name}: K2 launches {steps[name][2]} != 4")
+    del got, want
+
+    # K2 at the shard's launch shape, against its plain version
+    chunk = qw[: -(-qw.shape[0] // 4)]
+    got = fm.get_range_packed_device(single.arrays, chunk, QLEN, 0,
+                                     blocks=single.blocks)
+    plain = fm.get_range_packed_device_plain(single.arrays, chunk, QLEN, 0)
+    for g, w in zip(got, plain):
+        err["fm_backward_search"] = max(err["fm_backward_search"],
+                                        exact(g, w))
+    lf_steps = int((QLEN - plain[2]).sum())
+    k2_rows = {f"shard chunk {chunk.shape[0]} x {QLEN}": (
+        cuda_ms(lambda: fm.get_range_packed_device(
+            single.arrays, chunk, QLEN, 0, blocks=single.blocks), 20),
+        cuda_ms(lambda: fm.get_range_packed_device_plain(
+            single.arrays, chunk, QLEN, 0), 3),
+        *fm_query_time.k2_bound(single, chunk.shape[0], chunk.numel(),
+                                lf_steps),
+    )}
+    say(f"mesh on one card ({smi}), four shards (two for bitonic) on "
+        f"cuda:0, n={N - 1}: every SA bit-identical to the single-device SA, "
+        f"the sharded build's .fmi byte-identical, every one of their "
+        f"{compared[0]} local sorts equal to K1's plain version (a second, "
+        f"untimed run), row-sharded stats occ "
+        f"{occ} checksum {checksum} (the oracle's), sharded_batch_query "
+        "ranges equal single-device K2's. Steps (seconds, K1 launches, K2 "
+        "launches, peak CUDA bytes): " + "; ".join(
+            f"{name} {s:.3f} s, {k1}, {k2}, {peak}"
+            for name, (s, k1, k2, peak) in steps.items())
+        + "; K1 at the mesh's local-sort shapes, ms, plain ms, bound ms: "
+        + "; ".join(f"{name} {t:.4f}, {p:.4f}, {b:.5f} ({by})"
+                    for name, (t, p, b, by) in k1_rows.items())
+        + "; K2 at the shard's shape, ms, plain ms, bound ms: " + "; ".join(
+            f"{name} {t:.4f}, {p:.4f}, {b:.4f} ({by})"
+            for name, (t, p, b, by) in k2_rows.items())
+        + f"; phase {time.perf_counter() - t_phase:.3f} s")
+    return steps, k1_rows, k2_rows
+
+
 def phase_k1_shapes(torch, smi, err, shapes):
     """K1 at each new launch shape held against its plain version, exact,
     and timed beside it and its bound. Returns {shape: (ms, plain ms, bound
@@ -1066,8 +1264,13 @@ def main() -> int:
     general_launches = phase_general(torch, np, kernels, err, k1_shapes)
     phase_bfs_edge(torch, np, cli, logs, tmp)
     logging.getLogger().removeHandler(logs)
+    check(fmi.full_sa, "the full-sort index must take the per-row walk")
     k1_rows = phase_k1_shapes(torch, smi, err, k1_shapes)
     del k1_shapes
+    mesh_steps, mesh_k1_rows, k2_rows = phase_mesh(
+        torch, np, kernels, fa, text_dev, pats, qw, fmi, occ, checksum, err,
+        smi)
+    k1_rows.update(mesh_k1_rows)
 
     # ---- 8. the probe path, then the probes against their plain versions
     launches.update(phase_probe_path(torch, kernels))
@@ -1232,11 +1435,24 @@ def main() -> int:
             "suffix_sort --external -k 256": ext_launches,
             "suffix_sort -k 256 routed out of core": routed_launches,
             "get_suffix_array k=256": general_launches,
+            **{name: k1 for name, (_, k1, _, _) in mesh_steps.items()
+               if k1},
         },
         "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
                           "bound_by": by}
                    for name, (t, p, b, by) in k1_rows.items()},
         "external_split_s": ext_splits,
+    })
+    # K2's launches on the mesh path, and its time at the shard's shape
+    report["kernels"][1].update({
+        "launches_by_path": {
+            "main path": launches["fm_backward_search"],
+            **{name: k2 for name, (_, _, k2, _) in mesh_steps.items()
+               if k2},
+        },
+        "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
+                          "bound_by": by}
+                   for name, (t, p, b, by) in k2_rows.items()},
     })
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ Public API mirrors ``kiss_tpu``'s module and function names:
     (out-of-core), :mod:`kiss_tpu_torch.ops.lms_native` (host LMS +
     induced sort)
   - FM-index: :mod:`kiss_tpu_torch.models.fm_index`
+  - the device mesh behind ``-t N``: :mod:`kiss_tpu_torch.parallel`
   - CLI: ``python -m kiss_tpu_torch suffix_sort|fmindex_build|
     fmindex_query|serve ... [--device cuda|cpu]``
   - hardware probes: ``python -m kiss_tpu_torch.experiments.micro_kernels``

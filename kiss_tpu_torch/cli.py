@@ -18,8 +18,12 @@ absent or stale, archives written by the reference binary). ``serve``
 answers ``-q`` patterns and ``batch <file>`` requests from one loaded
 index.
 
-Not yet ported: ``-t N`` over more than one visible device (raises
-``NotImplementedError``).
+``-t N`` maps the reference's thread count onto a mesh of min(N, visible
+CUDA devices) cards (:mod:`kiss_tpu_torch.parallel`), as ``kiss_tpu.cli``
+maps it onto its device mesh: ``suffix_sort`` and ``fmindex_build`` sort
+on the mesh, the build makes its tables shard by shard and writes the same
+``.fmi``, and ``fmindex_query`` / ``serve`` search and walk a row-sharded
+index. On one card, and on the CPU, ``-t`` runs the single-device path.
 """
 
 from __future__ import annotations
@@ -36,13 +40,9 @@ from kiss_tpu_torch import BANNER, VERSION
 from kiss_tpu_torch.models import fm_index as fm_meta
 from kiss_tpu_torch.models.fm_index import FMIndex
 from kiss_tpu_torch.ops import external_sort
+from kiss_tpu_torch.ops import suffix_sort as ss
 from kiss_tpu_torch.ops.lms_native import LmsSorter
-from kiss_tpu_torch.ops.suffix_sort import (
-    Kiss1Sorter,
-    Kiss2Sorter,
-    _mesh_size_for,
-    _require_single_device,
-)
+from kiss_tpu_torch.ops.suffix_sort import Kiss1Sorter, Kiss2Sorter
 from kiss_tpu_torch.utils import codec, fasta, timing
 from kiss_tpu_torch.utils.device import resolve_device
 
@@ -224,6 +224,12 @@ def _reject_generic(args) -> None:
 # 133.3 (k = -1, a 1000-periodic text, where every suffix stays tied into
 # the tail refinement) -- see PERF.md
 IN_CORE_BYTES_PER_CHAR = 160
+# the same for -t N over a mesh, whose glue runs at full length on the lead
+# card beside its padded key set, blocks and joined result: 161.6
+# (columnsort, k = 256) to 301.2 (sample sort, k = -1) measured with four
+# shards on one H100 80GB HBM3 at 700 W, n = 48,800,648 (chip_smoke.py
+# phase 7f) -- the largest is taken
+MESH_IN_CORE_BYTES_PER_CHAR = 302
 # safety margin against the cost model (allocator reserves, fragmentation)
 IN_CORE_MEM_FRACTION = 0.9
 # on the CPU there is no device memory to read: the JAX package's
@@ -231,10 +237,11 @@ IN_CORE_MEM_FRACTION = 0.9
 EXTERNAL_THRESHOLD_FALLBACK = 350_000_000
 
 
-def in_core_capacity_chars(device) -> int:
+def in_core_capacity_chars(device, mesh_size: int = 1) -> int:
     """Largest text (chars) the in-core pipeline should attempt on
     ``device``: for CUDA, the card's memory (``torch.cuda.mem_get_info``)
-    times IN_CORE_MEM_FRACTION over IN_CORE_BYTES_PER_CHAR.
+    times IN_CORE_MEM_FRACTION over IN_CORE_BYTES_PER_CHAR, or over
+    MESH_IN_CORE_BYTES_PER_CHAR for a mesh of ``mesh_size`` > 1.
     ``KISS_TPU_INCORE_CAP=<chars>`` overrides the derivation."""
     override = os.environ.get("KISS_TPU_INCORE_CAP")
     if override:
@@ -243,7 +250,9 @@ def in_core_capacity_chars(device) -> int:
     if dev.type != "cuda":
         return EXTERNAL_THRESHOLD_FALLBACK
     _free, total = torch.cuda.mem_get_info(dev)
-    return int(total * IN_CORE_MEM_FRACTION) // IN_CORE_BYTES_PER_CHAR
+    per_char = (MESH_IN_CORE_BYTES_PER_CHAR if mesh_size > 1
+                else IN_CORE_BYTES_PER_CHAR)
+    return int(total * IN_CORE_MEM_FRACTION) // per_char
 
 
 def suffix_sort_main(args) -> None:
@@ -252,11 +261,12 @@ def suffix_sort_main(args) -> None:
     seq = _read_folded(args.fasta)
     sorter = SORTING_ALGORITHMS[args.sorting_algorithm]
     ref = sorter.prepare_aligned_ref(seq)
-    # the multi-device in-core pipeline would split its buffers over the
-    # devices, so the capacity scales with them as in kiss_tpu.cli; -t N
-    # over several devices is not ported, and raises on the in-core route
-    d = _mesh_size_for(args.num_threads, dev)
-    capacity = in_core_capacity_chars(dev) * max(d, 1)
+    # a mesh lowers the capacity, where kiss_tpu.cli multiplies it by the
+    # device count: the port's mesh pipeline keeps its glue (key packing,
+    # rank rebuild, tail refinement) at full length on the lead card, beside
+    # the mesh sort's padded keys and joined result
+    d = ss._mesh_size_for(args.num_threads, dev)
+    capacity = in_core_capacity_chars(dev, d)
     # LMS_INDUCED is host-resident (~10 B/char of host RAM, no device
     # buffers), so the device-memory auto-route does not apply to it;
     # an explicit --external still wins
@@ -268,7 +278,7 @@ def suffix_sort_main(args) -> None:
                 "routing: n = %d exceeds the in-core device budget "
                 "(%d chars x %d device(s)); using the out-of-core "
                 "sorter (host-staged; -s/-t do not apply on this path)",
-                len(ref), capacity // max(d, 1), d,
+                len(ref), capacity, d,
             )
         external_sort.external_k_ordered_suffix_array(
             ref, args.kordered, verbose=timing.debug_enabled(), device=dev
@@ -276,7 +286,6 @@ def suffix_sort_main(args) -> None:
     elif host_resident:
         sorter.get_suffix_array_dna(ref, args.kordered, args.num_threads)
     else:
-        _require_single_device(args.num_threads, dev)
         sorter.get_suffix_array_dna(ref, args.kordered, args.num_threads,
                                     device=dev)
     timing.log_info(
@@ -285,18 +294,54 @@ def suffix_sort_main(args) -> None:
     )
 
 
+def _build_sharded(fmi: FMIndex, seq: np.ndarray, sort_len, d: int) -> None:
+    """fmindex_build over a d-device mesh: the suffix sort and the index
+    tables on the mesh, trimmed to the canonical serialization layout, so
+    the `.fmi` is byte-identical to the single-device build's (the
+    reference -t knob, src/main.cpp:22-26, as kiss_tpu.cli's
+    ``_build_sharded``)."""
+    from kiss_tpu_torch.parallel import make_mesh
+    from kiss_tpu_torch.parallel.dsort import sharded_k_ordered_suffix_array
+    from kiss_tpu_torch.parallel.fm_build import (
+        build_index_sharded,
+        trim_canonical,
+    )
+
+    timing.log_debug("fmindex_build: sharded build over %d devices", d)
+    mesh = make_mesh(d, device=fmi.device)
+    text = torch.from_numpy(np.ascontiguousarray(seq, dtype=np.int8))
+    fmi.full_sa = (
+        sort_len is None or sort_len < 0 or sort_len >= len(seq)
+    )
+    with timing.stage("suffix sort (sharded)") as out:
+        sa = sharded_k_ordered_suffix_array(
+            mesh, text, -1 if sort_len is None else sort_len
+        )
+        out["block_on"] = sa
+    with timing.stage("fmindex build (sharded)") as out:
+        arrays = build_index_sharded(mesh, text, sa, fmi.sa_intv)
+        fmi.arrays = trim_canonical(arrays, len(seq) + 1, fmi.sa_intv)
+        fmi.blocks = fm_meta.block_table(fmi.arrays, fmi.sa_intv)
+        out["block_on"] = fmi.blocks
+    fmi.n_rows = len(seq) + 1
+    fmi._build_lookup()
+
+
 def fmindex_build_main(args) -> None:
     _reject_generic(args)
     dev = resolve_device(args.device)
     seq = _read_folded(args.fasta)
-    _require_single_device(args.num_threads, dev)
     fmi = FMIndex(sa_intv=4, lookup_len=args.lookup_len, device=dev)
     # -k omitted -> the full-sort default (None); -k N -> N-ordered SA
     # (-1 = unbounded, same wrap rule as suffix_sort, README.md:56)
     sort_len = args.kordered
     if sort_len is not None and sort_len < 0:
         sort_len = None
-    fmi.build(seq, sort_len=sort_len)
+    d = ss._mesh_size_for(args.num_threads, dev)
+    if d > 1:
+        _build_sharded(fmi, seq, sort_len, d)
+    else:
+        fmi.build(seq, sort_len=sort_len)
     fmi_path = args.fasta + ".fmi"
     with open(fmi_path, "wb") as fout:
         fmi.save(fout)
@@ -317,11 +362,10 @@ def _ordinal(x: int) -> str:
 
 
 def _load_query_engine(args):
-    """Shared fmindex_query/serve setup: read + load + locate routing.
-    Returns (seq, engine)."""
+    """Shared fmindex_query/serve setup: read + load + locate routing +
+    mesh selection. Returns (seq, engine)."""
     dev = resolve_device(args.device)
     seq = _read_folded(args.fasta)
-    _require_single_device(args.num_threads, dev)
     fmi = FMIndex(sa_intv=4, lookup_len=0, device=dev)
     fmi_path = args.fasta + ".fmi"
     with open(fmi_path, "rb") as fin:
@@ -331,6 +375,16 @@ def _load_query_engine(args):
     meta = fm_meta.read_meta(fmi_path)
     if args.assume_full_sa or (meta is not None and meta.get("full_sa")):
         fmi.full_sa = True
+    # -t N (N > 1): the search (and, for full-sort indexes, the locate
+    # walk) over an N-device mesh with the index row-sharded; results
+    # equal -t 1's
+    d = ss._mesh_size_for(args.num_threads, dev)
+    if d > 1:
+        from kiss_tpu_torch.parallel import make_mesh
+        from kiss_tpu_torch.parallel.fm_sharded import ShardedFMQuery
+
+        timing.log_debug("fmindex_query: index sharded over %d devices", d)
+        return seq, ShardedFMQuery(make_mesh(d, device=dev), fmi)
     return seq, fmi
 
 

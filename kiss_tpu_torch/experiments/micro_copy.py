@@ -94,13 +94,14 @@ def copy_2d(x, rows):
             f"y extent of {MAX_ROWS_2D}; use a larger rows"
         )
     out = torch.empty((ntiles, rows * LANES), dtype=x.dtype, device=x.device)
-    kernels.check(
-        kernels.library().kt_probe_copy_2d(
-            x.data_ptr(), out.data_ptr(), ntiles, rows * LANES // VEC,
-            kernels.stream_of(x.device),
-        ),
-        "kt_probe_copy_2d",
-    )
+    with torch.cuda.device(x.device):
+        kernels.check(
+            kernels.library().kt_probe_copy_2d(
+                x.data_ptr(), out.data_ptr(), ntiles, rows * LANES // VEC,
+                kernels.stream_of(x.device),
+            ),
+            "kt_probe_copy_2d",
+        )
     kernels.count_launch("copy_2d")
     return out
 

@@ -148,11 +148,12 @@ def launch_tile_map(entry: str, counter: str, x: torch.Tensor, rows: int,
     # [R, 128] int32 is R * 32 vectors of 16 bytes: never a ragged vector
     nvec = x.numel() // VEC
     fn = getattr(kernels.library(), entry)
-    kernels.check(
-        fn(x.data_ptr(), out.data_ptr(), nvec, rows * LANES // VEC, *scalars,
-           kernels.stream_of(x.device)),
-        entry,
-    )
+    with torch.cuda.device(x.device):
+        kernels.check(
+            fn(x.data_ptr(), out.data_ptr(), nvec, rows * LANES // VEC,
+               *scalars, kernels.stream_of(x.device)),
+            entry,
+        )
     kernels.count_launch(counter)
     return out
 
@@ -226,13 +227,14 @@ def one_stage(k, v, rows, d, stage_d):
     if k.device.type == "cpu":
         return one_stage_plain(k, v, rows, d, stage_d)
     ko, vo = torch.empty_like(k), torch.empty_like(v)
-    kernels.check(
-        kernels.library().kt_probe_one_stage(
-            k.data_ptr(), v.data_ptr(), ko.data_ptr(), vo.data_ptr(),
-            k.numel(), T, d, stage_d, kernels.stream_of(k.device),
-        ),
-        "kt_probe_one_stage",
-    )
+    with torch.cuda.device(k.device):
+        kernels.check(
+            kernels.library().kt_probe_one_stage(
+                k.data_ptr(), v.data_ptr(), ko.data_ptr(), vo.data_ptr(),
+                k.numel(), T, d, stage_d, kernels.stream_of(k.device),
+            ),
+            "kt_probe_one_stage",
+        )
     kernels.count_launch("one_stage")
     return ko, vo
 
@@ -310,21 +312,22 @@ def tile_sort(k, v, rows):
         return tile_sort_plain(k, v, rows)
     ko, vo = torch.empty_like(k), torch.empty_like(v)
     lib, stream, n = kernels.library(), kernels.stream_of(k.device), k.numel()
-    for launch in tile_sort_schedule(T):
-        size = launch.steps[0][0]
-        if launch.kind == "wide":
-            rc = lib.kt_probe_sort_wide(
-                ko.data_ptr(), vo.data_ptr(), n, T, size, launch.steps[0][1],
-                launch.steps[-1][1], stream,
-            )
-        else:
-            full = launch.kind == "local_full"
-            src_k, src_v = (k, v) if full else (ko, vo)
-            rc = lib.kt_probe_sort_local(
-                src_k.data_ptr(), src_v.data_ptr(), ko.data_ptr(),
-                vo.data_ptr(), n, T, 0 if full else size, stream,
-            )
-        kernels.check(rc, f"tile_sort {launch.kind}")
+    with torch.cuda.device(k.device):
+        for launch in tile_sort_schedule(T):
+            size = launch.steps[0][0]
+            if launch.kind == "wide":
+                rc = lib.kt_probe_sort_wide(
+                    ko.data_ptr(), vo.data_ptr(), n, T, size,
+                    launch.steps[0][1], launch.steps[-1][1], stream,
+                )
+            else:
+                full = launch.kind == "local_full"
+                src_k, src_v = (k, v) if full else (ko, vo)
+                rc = lib.kt_probe_sort_local(
+                    src_k.data_ptr(), src_v.data_ptr(), ko.data_ptr(),
+                    vo.data_ptr(), n, T, 0 if full else size, stream,
+                )
+            kernels.check(rc, f"tile_sort {launch.kind}")
     kernels.count_launch("tile_sort")
     return ko, vo
 
@@ -351,15 +354,16 @@ def kernel_gather(x, idx, rows):
     if x.device.type == "cpu":
         return kernel_gather_plain(x, idx, rows)
     out = torch.empty_like(idx)
-    kernels.check(
-        kernels.library().kt_probe_gather(
-            x.data_ptr(), x.shape[0], idx.data_ptr(), out.data_ptr(),
-            idx.numel() // VEC, rows * LANES // VEC,
-            int(x.shape[0] * 4 <= SHARED_TABLE_BYTES),
-            kernels.stream_of(x.device),
-        ),
-        "kt_probe_gather",
-    )
+    with torch.cuda.device(x.device):
+        kernels.check(
+            kernels.library().kt_probe_gather(
+                x.data_ptr(), x.shape[0], idx.data_ptr(), out.data_ptr(),
+                idx.numel() // VEC, rows * LANES // VEC,
+                int(x.shape[0] * 4 <= SHARED_TABLE_BYTES),
+                kernels.stream_of(x.device),
+            ),
+            "kt_probe_gather",
+        )
     kernels.count_launch("kernel_gather")
     return out
 

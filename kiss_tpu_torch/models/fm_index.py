@@ -494,16 +494,18 @@ def get_range_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
     end = torch.empty(q, dtype=torch.int64, device=dev)
     offs = torch.empty(q, dtype=torch.int64, device=dev)
     lib = kernels.library()
-    kernels.check(
-        lib.kt_fm_backward_search(
-            blocks.blk.data_ptr(), blocks.sup.data_ptr(), idx.pri.data_ptr(),
-            idx.lookup.data_ptr(), idx.lookup.shape[0], qwords.data_ptr(),
-            q, qwords.shape[1], qlen, lookup_len, int(early_stop),
-            beg.data_ptr(), end.data_ptr(), offs.data_ptr(),
-            kernels.stream_of(dev),
-        ),
-        "kt_fm_backward_search",
-    )
+    with torch.cuda.device(dev):
+        kernels.check(
+            lib.kt_fm_backward_search(
+                blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                idx.pri.data_ptr(),
+                idx.lookup.data_ptr(), idx.lookup.shape[0], qwords.data_ptr(),
+                q, qwords.shape[1], qlen, lookup_len, int(early_stop),
+                beg.data_ptr(), end.data_ptr(), offs.data_ptr(),
+                kernels.stream_of(dev),
+            ),
+            "kt_fm_backward_search",
+        )
     kernels.count_launch("fm_backward_search")
     return beg, end, offs
 
@@ -575,15 +577,17 @@ def locate_rows_device(idx: FMArrays, rows: torch.Tensor, sa_intv: int, *,
     _kernel_inputs(idx, blocks, rows=rows)
     out = torch.empty_like(rows)
     lib = kernels.library()
-    kernels.check(
-        lib.kt_fm_locate_rows(
-            blocks.blk.data_ptr(), blocks.sup.data_ptr(), idx.pri.data_ptr(),
-            idx.sa_samp.data_ptr(), sa_intv,
-            rows.data_ptr(), rows.shape[0], out.data_ptr(),
-            kernels.stream_of(rows.device),
-        ),
-        "kt_fm_locate_rows",
-    )
+    with torch.cuda.device(rows.device):
+        kernels.check(
+            lib.kt_fm_locate_rows(
+                blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                idx.pri.data_ptr(),
+                idx.sa_samp.data_ptr(), sa_intv,
+                rows.data_ptr(), rows.shape[0], out.data_ptr(),
+                kernels.stream_of(rows.device),
+            ),
+            "kt_fm_locate_rows",
+        )
     kernels.count_launch("fm_locate_rows")
     return out
 
@@ -631,14 +635,17 @@ def batch_locate_stats_device(idx: FMArrays, beg: torch.Tensor,
     incl = torch.cumsum(end - beg, dim=0)
     out = torch.empty(2, dtype=torch.int64, device=beg.device)
     lib = kernels.library()
-    kernels.check(
-        lib.kt_fm_locate_stats(
-            blocks.blk.data_ptr(), blocks.sup.data_ptr(), idx.pri.data_ptr(),
-            idx.sa_samp.data_ptr(), sa_intv, beg.data_ptr(), incl.data_ptr(),
-            beg.shape[0], out.data_ptr(), kernels.stream_of(beg.device),
-        ),
-        "kt_fm_locate_stats",
-    )
+    with torch.cuda.device(beg.device):
+        kernels.check(
+            lib.kt_fm_locate_stats(
+                blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                idx.pri.data_ptr(),
+                idx.sa_samp.data_ptr(), sa_intv, beg.data_ptr(),
+                incl.data_ptr(),
+                beg.shape[0], out.data_ptr(), kernels.stream_of(beg.device),
+            ),
+            "kt_fm_locate_stats",
+        )
     kernels.count_launch("fm_locate_stats")
     total, checksum = out.tolist()
     return total, checksum

@@ -87,7 +87,8 @@ def radix_sort_words(keys: torch.Tensor):
         return radix_sort_words_plain(keys)
     if keys.device.type != "cuda":
         raise ValueError(f"radix_sort_words: unsupported device {keys.device}")
-    return _radix_sort_words_cuda(keys)
+    with torch.cuda.device(keys.device):
+        return _radix_sort_words_cuda(keys)
 
 
 def radix_sort_wide(keys: torch.Tensor):
@@ -115,13 +116,14 @@ def digit_counts_cuda(keys: torch.Tensor) -> torch.Tensor:
     digit totals of every pass."""
     W, N = keys.shape
     counts = torch.empty((W, 4, 256), dtype=torch.int32, device=keys.device)
-    kernels.check(
-        kernels.library().kt_radix_digit_counts(
-            keys.data_ptr(), W, N, counts.data_ptr(),
-            kernels.stream_of(keys.device),
-        ),
-        "kt_radix_digit_counts",
-    )
+    with torch.cuda.device(keys.device):
+        kernels.check(
+            kernels.library().kt_radix_digit_counts(
+                keys.data_ptr(), W, N, counts.data_ptr(),
+                kernels.stream_of(keys.device),
+            ),
+            "kt_radix_digit_counts",
+        )
     return counts
 
 

@@ -497,7 +497,7 @@ def _is_full(rnd: _Round, cover: int) -> bool:
 
 
 def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
-              sort_impl=radix_sort_wide):
+              sort_impl=radix_sort_wide, stage_logs: bool = True):
     """Run a sort plan from the host: seed, then rounds until the plan ends
     or every suffix is a singleton group. With ``refine_tail`` an
     unbounded plan switches to compacted tail refinement after
@@ -505,11 +505,13 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
     ``kiss_tpu``'s ``_run_plan``); without it every round runs over the
     whole array (the
     single-program path, ``k_ordered_suffix_array_device``). Both give
-    the identical SA. ``sort_impl`` is the multi-word sort seam."""
+    the identical SA. ``sort_impl`` is the multi-word sort seam.
+    ``stage_logs=False`` drops the per-stage ``--verbose`` lines, as
+    ``kiss_tpu``'s jitted mesh pipeline has none."""
     nrounds = len(plan.rounds)
     # per-phase stopwatch logs under --verbose (reference model:
     # kiss1_core.hpp:244-267 / README.md:94-101 stage table)
-    dbg = timing.debug_enabled()
+    dbg = stage_logs and timing.debug_enabled()
     sa, rank, done = timing.staged(
         f"seed_sort(chars={plan.seed_chars})" if dbg else None,
         lambda: _seed_sort(
@@ -682,23 +684,17 @@ def _mesh_size_for(num_threads, device="cuda") -> int:
     return d
 
 
-def _require_single_device(num_threads, device) -> None:
-    if _mesh_size_for(num_threads, device) > 1:
-        raise NotImplementedError(
-            "-t N over several CUDA devices (the multi-device sort, build "
-            "and query of kiss_tpu.parallel) is not yet ported to "
-            "kiss_tpu_torch; use -t 1"
-        )
-
-
 class _SorterBase:
     """API facade matching the reference sorter contract
     (reference: include/biovoltron/algo/sort/sorter.hpp:7-10,
     kiss1_sorter.hpp:8-50): static ``get_suffix_array_dna`` /
     ``get_suffix_array`` / ``prepare_aligned_ref``.
 
-    ``num_threads`` maps onto the number of devices; only one device is
-    ported so far (see :func:`_require_single_device`).
+    ``num_threads`` maps onto the device mesh (reference: src/main.cpp:
+    23-26 caps TBB threads): values above 1 run the DNA sort on a mesh of
+    min(num_threads, visible CUDA devices) cards
+    (:mod:`kiss_tpu_torch.parallel`); 0/1/None, and the general alphabet,
+    run the single-device pipeline.
     """
 
     SA_dtype = np.uint32
@@ -711,14 +707,23 @@ class _SorterBase:
     @classmethod
     def get_suffix_array_dna(cls, ref, k=256, num_threads=None,
                              device="cuda") -> np.ndarray:
-        _require_single_device(num_threads, device)
+        d = _mesh_size_for(num_threads, device)
+        if d > 1:
+            from kiss_tpu_torch.parallel import make_mesh
+            from kiss_tpu_torch.parallel.dsort import (
+                sharded_k_ordered_suffix_array,
+            )
+
+            sa = sharded_k_ordered_suffix_array(
+                make_mesh(d, device=device), ref, k, strategy=cls.strategy
+            )
+            return pack.to_u32_bits(sa).cpu().numpy().view(np.uint32)
         return k_ordered_suffix_array(
             ref, k, pack.DNA, strategy=cls.strategy, device=device
         )
 
     @classmethod
     def get_suffix_array(cls, ref, k=256, num_threads=None, device="cuda"):
-        _require_single_device(num_threads, device)
         return k_ordered_suffix_array(
             ref, k, pack.GENERAL, strategy=cls.strategy, device=device
         )

@@ -2,7 +2,8 @@
 against ``kiss_tpu.cli.main`` on one FASTA -- equal log lines (timings
 masked), equal ``.fmi`` bytes and ``.meta`` sidecars -- the sort routes
 (``--external``, the automatic out-of-core route, ``-s LMS_INDUCED``),
-``serve``, the port's device rule and what is not yet ported."""
+``serve``, ``-t N`` over a mesh of CPU shards, the port's device rule and
+what the reference rejects."""
 
 import io
 import json
@@ -109,20 +110,17 @@ def test_cuda_without_cuda_raises(corpus):
 
 
 def test_not_yet_ported_raise(corpus, monkeypatch):
-    """What is left unported raises: ``-t N`` over several devices (two
-    devices made visible to the planner), on every command that would
-    run in-core; ``--generic`` is rejected on every command, as by the
-    reference. The out-of-core route ignores ``-t``, as in kiss_tpu."""
+    """``--generic`` is rejected on every command, as by the reference.
+    (``-t N`` over several devices no longer raises: the ``-t 2`` and
+    ``-t 4`` tests below hold it against ``kiss_tpu``.) The
+    out-of-core route ignores ``-t``, as in kiss_tpu, also with two
+    devices made visible to the planner."""
     _, tfa, _, _ = corpus
     cpu = ["--device", "cpu"]
     for cmd in ("suffix_sort", "fmindex_build", "fmindex_query", "serve"):
         with pytest.raises(SystemExit):
             tcli.main([cmd, "-g", *cpu, tfa])
     monkeypatch.setattr(tss, "_mesh_size_for", lambda num_threads, device: 2)
-    for argv in (["suffix_sort"], ["fmindex_build"],
-                 ["fmindex_query", "-q", "ACGT"]):
-        with pytest.raises(NotImplementedError, match="several CUDA devices"):
-            tcli.main([*argv, "-t", "2", *cpu, tfa])
     assert tcli.main(["suffix_sort", "--external", "-t", "2", *cpu, tfa]) == 0
 
 
@@ -210,6 +208,18 @@ def test_in_core_capacity(monkeypatch):
             == tcli.EXTERNAL_THRESHOLD_FALLBACK)
     monkeypatch.setenv("KISS_TPU_INCORE_CAP", "1234")
     assert tcli.in_core_capacity_chars("cuda") == 1234
+    assert tcli.in_core_capacity_chars("cuda", 4) == 1234
+    monkeypatch.delenv("KISS_TPU_INCORE_CAP")
+    total = 80 * 10**9
+    monkeypatch.setattr(tcli.torch.cuda, "mem_get_info",
+                        lambda dev: (total // 2, total))
+    usable = int(total * tcli.IN_CORE_MEM_FRACTION)
+    assert (tcli.in_core_capacity_chars("cuda")
+            == usable // tcli.IN_CORE_BYTES_PER_CHAR)
+    # a mesh's lead card holds the glue and the mesh sort's buffers
+    assert (tcli.in_core_capacity_chars("cuda", 2)
+            == usable // tcli.MESH_IN_CORE_BYTES_PER_CHAR
+            < tcli.in_core_capacity_chars("cuda"))
 
 
 def test_sidecar_routes_locate(tmp_path, caplog):
@@ -286,3 +296,155 @@ def test_verbose_stage_log_and_version(tmp_path, caplog, capsys):
     assert any(m.startswith("wide_round[0]") for m in msgs)
     assert tcli.main(["-v"]) == 0
     assert capsys.readouterr().out.strip() == tcli.VERSION
+
+
+@pytest.fixture(scope="module")
+def mesh_corpus(tmp_path_factory):
+    """A repeat-heavy FASTA in three directories -- kiss_tpu ``-t N``, the
+    port's ``-t N`` and the port's ``-t 1`` -- and a batch file."""
+    root = tmp_path_factory.mktemp("torch_cli_mesh")
+    text = oracle.repeat_heavy_dna(6_000, unit=450, seed=7)
+    paths = []
+    for name in ("jax", "torch", "torch1"):
+        (root / name).mkdir()
+        paths.append(str(root / name / "ref.fa"))
+        fasta.write_fasta(paths[-1], [fasta.FastaRecord("chr1", text)])
+    assert tcli.main(["fmindex_build", "--device", "cpu", paths[2]]) == 0
+    rng = np.random.default_rng(5)
+    qlen, nq = 12, 150
+    pats = [codec.to_string(text[p : p + qlen])
+            for p in rng.integers(0, len(text) - qlen, nq - 20)]
+    pats += [codec.to_string(rng.integers(0, 4, qlen)) for _ in range(20)]
+    bpath = str(root / "patterns.bin")
+    with open(bpath, "wb") as f:
+        f.write(struct.pack("<II", qlen, nq))
+        f.write("".join(pats).encode())
+    return (*paths, bpath, text)
+
+
+def _verbose_lines(main, logger, argv, caplog):
+    caplog.clear()
+    with caplog.at_level(logging.DEBUG, logger=logger):
+        assert main(argv) == 0
+    return [
+        re.sub(r"\d+\.\d+", "<t>", r.getMessage())
+        for r in caplog.records if r.name == logger
+    ]
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_num_threads_mesh_matches_kiss_tpu(mesh_corpus, caplog, monkeypatch,
+                                           d):
+    """``-t d`` on every command, with ``d`` CPU shards made visible to the
+    port's planner (kiss_tpu runs its ``d``-device virtual mesh): the
+    ``--verbose`` log lines of kiss_tpu.cli (the sharded-build and
+    sharded-query lines and stages included), the SAs of both mesh
+    sorters equal each other and the port's ``-t 1`` SA, and the ``.fmi``
+    bytes equal kiss_tpu's ``-t d`` archive and the port's ``-t 1``
+    archive; ``-q``, ``-b`` and ``serve`` through the row-sharded index
+    give kiss_tpu's lines, counts and checksum."""
+    import kiss_tpu.parallel.dsort as jdsort
+
+    from kiss_tpu_torch.parallel import dsort as tdsort
+
+    jfa, tfa, t1fa, bpath, text = mesh_corpus
+    monkeypatch.setattr(tss, "_mesh_size_for",
+                        lambda num_threads, device: max(num_threads, 1))
+
+    def both(argv):
+        flags = ["-t", str(d), "--verbose"]
+        want = _verbose_lines(jcli.main, "kiss_tpu", argv + flags + [jfa],
+                              caplog)
+        got = _verbose_lines(tcli.main, "kiss_tpu_torch",
+                             argv + flags + ["--device", "cpu", tfa], caplog)
+        assert got == want
+        return got
+
+    for argv, k in ((["suffix_sort", "-k", "64"], 64),
+                    (["suffix_sort", "-s", "prefix_doubling", "-k", "-1"], -1),
+                    (["fmindex_build"], -1)):
+        with Kept(jdsort, "sharded_k_ordered_suffix_array") as jkept, \
+                Kept(tdsort, "sharded_k_ordered_suffix_array") as tkept:
+            lines = both(argv)
+        (jsa,), (tsa,) = jkept.values, tkept.values
+        np.testing.assert_array_equal(tsa.numpy(), np.asarray(jsa))
+        np.testing.assert_array_equal(
+            tsa.numpy(), tss.k_ordered_suffix_array(text, k, device="cpu"))
+    assert lines == [f"fmindex_build: sharded build over {d} devices",
+                     "suffix sort (sharded) elapsed <t>",
+                     "fmindex build (sharded) elapsed <t>"]
+    with open(jfa + ".fmi", "rb") as a, open(tfa + ".fmi", "rb") as b, \
+            open(t1fa + ".fmi", "rb") as c:
+        got = b.read()
+        assert got == a.read() and got == c.read()
+    pattern = codec.to_string(text[1000:1012])
+    lines = both(["fmindex_query", "-q", pattern, "-n", "5"])
+    assert lines[0] == f"fmindex_query: index sharded over {d} devices"
+    hits = oracle.search_all(text, codec.to_istring(pattern))
+    assert lines[1] == f"query = {pattern} found {len(hits)} times"
+    lines = both(["fmindex_query", "-b", bpath])
+    assert lines[4].startswith("number of matched locations: ")
+    single = _lines(tcli.main, "kiss_tpu_torch",
+                    ["fmindex_query", "-b", bpath, "--device", "cpu", t1fa],
+                    caplog)
+    assert single[2:] == lines[4:6]
+
+    def serve(mod, logger, fa, extra):
+        args = mod.build_parser().parse_args(
+            ["serve", "-t", str(d), "--warm", "8", *extra, fa])
+        out = io.StringIO()
+        mod.serve_main(args, io.StringIO(f"{pattern}\nbatch {bpath}\n"), out)
+        return re.sub(r"\d+\.\d+", "<t>", out.getvalue()).splitlines()
+
+    assert (serve(tcli, "kiss_tpu_torch", tfa, ["--device", "cpu"])
+            == serve(jcli, "kiss_tpu", jfa, [])
+            == ["ready", "ok <t>", "ok <t>"])
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_num_threads_mesh_bounded_archive(mesh_corpus, caplog, monkeypatch,
+                                          d, tmp_path):
+    """``fmindex_build -k 32 -t d`` writes kiss_tpu's archive, and ``-q`` /
+    ``-b`` on it over the mesh take the range BFS on the lead device
+    (kiss_tpu's debug line says so) with kiss_tpu's answers."""
+    jfa, _, _, bpath, text = mesh_corpus
+    fa = str(tmp_path / "k32.fa")
+    jk = str(tmp_path / "jk32.fa")
+    shutil.copy(jfa, fa)
+    shutil.copy(jfa, jk)
+    monkeypatch.setattr(tss, "_mesh_size_for",
+                        lambda num_threads, device: max(num_threads, 1))
+    for argv in (["fmindex_build", "-k", "32"],
+                 ["fmindex_query", "-q", codec.to_string(text[40:52])],
+                 ["fmindex_query", "-b", bpath]):
+        flags = ["-t", str(d), "--verbose"]
+        want = _verbose_lines(jcli.main, "kiss_tpu", argv + flags + [jk],
+                              caplog)
+        got = _verbose_lines(tcli.main, "kiss_tpu_torch",
+                             argv + flags + ["--device", "cpu", fa], caplog)
+        assert got == want
+        if "-q" in argv:
+            assert any("range-BFS locate" in m for m in got)
+    with open(jk + ".fmi", "rb") as a, open(fa + ".fmi", "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_mesh_keeps_single_device_capacity(mesh_corpus, caplog, monkeypatch):
+    """The port's mesh never raises the in-core capacity over the lead
+    card's (its glue runs there at full length), where kiss_tpu.cli
+    multiplies it by the device count: with the capacity between n / 2
+    and n, ``-t 2`` routes out of core here and logs the capacity and the
+    mesh size, and the SA is the in-core one."""
+    _, tfa, _, _, text = mesh_corpus
+    monkeypatch.setattr(tss, "_mesh_size_for",
+                        lambda num_threads, device: max(num_threads, 1))
+    monkeypatch.setenv("KISS_TPU_INCORE_CAP", str(len(text) * 3 // 4))
+    with Kept(ext, "external_k_ordered_suffix_array") as kept:
+        lines = _lines(tcli.main, "kiss_tpu_torch",
+                       ["suffix_sort", "-k", "100", "-t", "2", "--device",
+                        "cpu", tfa], caplog)
+    assert lines[0].startswith(
+        f"routing: n = {len(text)} exceeds the in-core device budget "
+        f"({len(text) * 3 // 4} chars x 2 device(s))")
+    np.testing.assert_array_equal(
+        kept.values[0], tss.k_ordered_suffix_array(text, 100, device="cpu"))

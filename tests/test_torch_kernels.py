@@ -111,6 +111,36 @@ def test_radix_sort_words_200_calls_on_two_tiles(cuda):
         assert torch.equal(got_k, want_k), call
 
 
+def test_radix_sort_words_on_the_tensors_card(cuda):
+    """K1 launches on the card its keys lie on, whatever card is current:
+    keys on cuda:1 while cuda:0 is current (needs two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two visible CUDA devices")
+    keys = _edge_words("random", 3, 100_003, 11).to("cuda:1")
+    with torch.cuda.device(0):
+        got_k, got_p = radix_sort_words(keys)
+        torch.cuda.synchronize(keys.device)
+    want_k, want_p = radix_sort_words_plain(keys.cpu())
+    assert got_k.device == keys.device
+    assert torch.equal(got_p.cpu(), want_p)
+    assert torch.equal(got_k.cpu(), want_k)
+
+
+def test_mesh_sorts_on_one_card(cuda):
+    """The three mesh sorts with four (and two) shards on one card, every
+    local sort K1, against K1 on the whole key set."""
+    from kiss_tpu_torch.parallel import dsort, make_mesh
+
+    keys = _edge_words("small", 4, 1_000_003, 12).to(cuda)
+    want_k, want_p = radix_sort_words(keys)
+    for D, algo in ((4, "columnsort"), (2, "bitonic"), (4, "sample")):
+        impl = dsort.make_sharded_sort_impl(make_mesh(devices=[cuda] * D),
+                                            algo)
+        got_k, got_p = impl(keys)
+        assert torch.equal(got_p, want_p), algo
+        assert torch.equal(got_k, want_k), algo
+
+
 def test_radix_sort_words_stable_payload(cuda):
     """Many equal keys: the payload must come out in input order within
     each tie (the tail refinement's contract)."""
