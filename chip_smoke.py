@@ -61,18 +61,23 @@ exits non-zero and prints no result line):
      ``-q T`` (a range that ends at row N);
   7f. the mesh of ``kiss_tpu_torch.parallel`` at full width, its shards
      on this one card (``make_mesh(devices=[cuda:0] * D)``), each step
-     with the launch counters reset just before and read just after:
-     ``sharded_k_ordered_suffix_array`` at k = 256 and -1 by columnsort
-     (D = 4), bitonic (D = 2) and sample sort (D = 4), each SA
-     bit-identical to the single-device SA; ``build_index_sharded`` +
-     ``trim_canonical`` (D = 4), its ``.fmi`` bytes those of the
-     single-device build; ``ShardedFMQuery.batch_query_stats`` of the 1M
+     with the launch counters reset just before and read just after, its
+     seconds and its peak bytes (and those above its start) per char:
+     ``sharded_sa_blocks`` (the suffix sort in per-shard blocks, from the
+     host text) at k = 256 and -1 by columnsort (D = 4), bitonic (D = 2)
+     and sample sort (D = 4), each SA block equal to its slice of the
+     single-device SA; columnsort and bitonic at k = -1 on 2, 4 and 8
+     shards, whose peaks give the per-card cost of a D-card mesh;
+     ``build_index_blocks`` + ``tables_to_host`` (D = 4), its ``.fmi``
+     bytes those of the single-device build; the columnsort D = 4, k = 256
+     SA and its build under ``utils.checks.LongestTensor``: no tensor
+     longer than two blocks and the seed's halo;
+     ``ShardedFMQuery.batch_query_stats`` of the 1M
      batch (the oracle's count and checksum) and ``sharded_batch_query``
-     (K2 on each shard; the single-device K2 ranges), with each step's
-     seconds, K1 and K2 launches and peak bytes; then each sort and build
-     step again, untimed, with every local sort held against K1's plain
-     version and K1 timed at each (W, N) of the k = 256 sorts and the
-     build; K2 timed at the shard's launch shape; before the mesh, K1
+     (K2 on each shard; the single-device K2 ranges); then each sort and
+     build step again, untimed, with every local sort held against K1's
+     plain version and K1 timed at each (W, N) of the k = 256 sorts and
+     the build; K2 timed at the shard's launch shape; before the mesh, K1
      timed at each new launch shape of 7a-7d (external seed batch, round
      segment, general seed);
   8. the probe path: ``kiss_tpu_torch.experiments.micro_kernels`` and
@@ -621,17 +626,24 @@ def phase_bfs_edge(torch, np, cli, logs, tmp):
         f"{time.perf_counter() - t_phase:.3f} s")
 
 
-def phase_mesh(torch, np, kernels, fa, text_dev, pats, qw, single, occ,
+def phase_mesh(torch, np, kernels, fa, text, text_dev, pats, qw, single, occ,
                checksum, err, smi):
     """7f: the mesh of kiss_tpu_torch.parallel with its shards on one card
     (``make_mesh(devices=[cuda:0] * D)``), at full width, each step held
-    against the single-device run of this process. ``single`` is the
-    loaded single-device index (its arrays and block table). Each sort
+    against the single-device run of this process. The suffix sort and
+    the build run in per-shard blocks (``sharded_sa_blocks``,
+    ``build_index_blocks`` + ``tables_to_host``) from the host text, each
+    SA block held against its slice of the single-device SA. Each sort
     and build step then runs once more, untimed, with every local sort
     held against K1's plain version; the first block of each (step, W, N)
-    of the k = 256 sorts and of the build is timed there. Returns ({step:
-    (seconds, K1 launches, K2 launches, peak bytes)}, the K1 rows and the
-    K2 rows: {shape: (ms, plain ms, bound ms, bound by)})."""
+    of the k = 256 sorts and of the build is timed there. Columnsort and
+    bitonic also run at k = -1 on 2, 4 and 8 shards, whose peaks above
+    the step's start give the per-card cost (below); the columnsort D = 4,
+    k = 256 SA and its build run once more under ``LongestTensor``, which
+    must see no tensor longer than two blocks and the seed's halo. Returns
+    ({step: (seconds, K1 launches, K2 launches, peak bytes, peak bytes
+    above the step's start)}, the K1 rows and the K2 rows: {shape: (ms,
+    plain ms, bound ms, bound by)})."""
     import io
 
     from kiss_tpu_torch.experiments import fm_query_time
@@ -649,23 +661,44 @@ def phase_mesh(torch, np, kernels, fa, text_dev, pats, qw, single, occ,
         sharded_batch_query,
         ssort,
     )
+    from kiss_tpu_torch.parallel.mesh import block_rows
+    from kiss_tpu_torch.parallel.sharded_plan import sharded_sa_blocks
+    from kiss_tpu_torch.utils.checks import LongestTensor
 
     t_phase = time.perf_counter()
     dev = text_dev.device
+    n = text.shape[0]
+    N = n + 1
     want_sa = {k: k_ordered_suffix_array(text_dev, k, as_numpy=False,
                                          device=dev) for k in (256, -1)}
     steps = {}
 
     def step(name, fn):
         """Run ``fn`` with the launch counters set to 0 just before and
-        read just after, and the peak bytes reset."""
+        read just after, and the peak bytes reset; the bytes allocated at
+        the start are read too."""
         kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         out, seconds = wall_s(fn)
+        peak = torch.cuda.max_memory_allocated()
         steps[name] = (seconds, kernels.LAUNCHES["radix_sort_words"],
-                       kernels.LAUNCHES["fm_backward_search"],
-                       torch.cuda.max_memory_allocated())
+                       kernels.LAUNCHES["fm_backward_search"], peak,
+                       peak - start)
         return out
+
+    def same_sa(blocks, want, D):
+        """Each SA block equal to its slice of the single-device SA, its
+        pad rows holding their row ids."""
+        B = block_rows(N, D)
+        for s, b in enumerate(blocks):
+            w = want[s * B : (s + 1) * B]
+            m = w.shape[0]
+            if not (torch.equal(b[:m], w) and torch.equal(b[m:], torch.arange(
+                    s * B + m, (s + 1) * B, device=b.device))):
+                return False
+        return len(blocks) == D
 
     def fmi_bytes(arrays):
         built = fm.FMIndex(sa_intv=4, lookup_len=0, arrays=arrays, n_rows=N,
@@ -709,48 +742,79 @@ def phase_mesh(torch, np, kernels, fa, text_dev, pats, qw, single, occ,
         finally:
             dsort._lsort = ssort._lsort = lsort
 
+    def run_sort(algo, D, k):
+        mesh = make_mesh(devices=[dev] * D)
+        name = f"sharded_sa_blocks {algo} D={D} k={k}"
+
+        def sort():
+            return sharded_sa_blocks(mesh, text, k, algo)
+
+        blocks = step(name, sort)
+        check(same_sa(blocks, want_sa[k], D),
+              f"{name}: SA differs from the single-device SA")
+        check(steps[name][1] > 0, f"{name}: K1 never launched")
+        return name, sort
+
     mesh_sorts = []
     for algo, D in (("columnsort", 4), ("bitonic", 2), ("sample", 4)):
-        mesh = make_mesh(devices=[dev] * D)
         for k in (256, -1):
-            name = f"sharded_k_ordered_suffix_array {algo} D={D} k={k}"
-
-            def sort(mesh=mesh, k=k, algo=algo):
-                return dsort.sharded_k_ordered_suffix_array(
-                    mesh, text_dev, k, algorithm=algo)
-
-            sa = step(name, sort)
-            check(torch.equal(sa, want_sa[k]),
-                  f"{name}: SA differs from the single-device SA")
-            check(steps[name][1] > 0, f"{name}: K1 never launched")
-            del sa
-            mesh_sorts.append((f"mesh {algo} D={D} k={k}", k == 256, k, sort))
+            _, sort = run_sort(algo, D, k)
+            mesh_sorts.append((f"mesh {algo} D={D} k={k}", k == 256, k, D,
+                               sort))
+    # the per-card cost: on one card, D shards of B = N / D rows peak at
+    # about N (r + t / D) above the start -- every shard's blocks (r a row)
+    # and one shard's transient (t a row) --, where each card of a D-card
+    # mesh would hold B (r + t); r and t by least squares over D = 2, 4, 8
+    per_card = {}
+    for algo in ("columnsort", "bitonic"):
+        own = []
+        for D in (2, 4, 8):
+            name = f"sharded_sa_blocks {algo} D={D} k=-1"
+            if name not in steps:
+                run_sort(algo, D, -1)
+            own.append((1 / D, steps[name][4] / n))
+        t, r = np.polyfit([x for x, _ in own], [y for _, y in own], 1)
+        per_card[algo] = (r, t, r + t)
 
     mesh = make_mesh(devices=[dev] * 4)
-    N = text_dev.shape[0] + 1
+    B4 = block_rows(N, 4)
+    sa_blocks = mesh.scatter_host(want_sa[-1], B4)
 
     def build():
-        return fm_build.trim_canonical(fm_build.build_index_sharded(
-            mesh, text_dev, want_sa[-1], 4), N, 4)
+        tables = fm_build.build_index_blocks(mesh, text, sa_blocks, 4)
+        return fm_build.tables_to_host(
+            mesh, tables, fm_build.sharded_lookup(mesh, tables, 0), 4)
 
-    arrays = step("build_index_sharded + trim_canonical D=4", build)
-    check(steps["build_index_sharded + trim_canonical D=4"][1] > 0,
-          "the sharded build never launched K1")
+    name = "build_index_blocks + tables_to_host D=4"
+    arrays = step(name, build)
+    check(steps[name][1] > 0, "the sharded build never launched K1")
     with open(fa + ".fmi", "rb") as f:
         want_fmi = f.read()
     check(fmi_bytes(arrays) == want_fmi, "the sharded build's .fmi bytes "
           "differ from the single-device build's")
     del arrays
 
+    # no op of the blocked sort and build makes a tensor longer than two
+    # blocks and the seed's 63-character halo (the widest legitimate one:
+    # a merge of two blocks), let alone one as long as the text
+    with LongestTensor() as rec:
+        blocks = sharded_sa_blocks(mesh, text, 256, "columnsort")
+        tables = fm_build.build_index_blocks(mesh, text, sa_blocks, 4)
+    longest = rec.longest
+    check(longest <= 2 * B4 + 63 < N, f"the blocked pipeline made a tensor "
+          f"of {longest} rows (B = {B4}, N = {N})")
+    check(same_sa(blocks, want_sa[256], 4), "the recorded run's SA differs")
+    del blocks, tables
+
     # every local sort of the sort and build steps against K1's plain
     # version, in runs of their own, so that the timed steps above carry
     # neither the plain sorts nor the timing of new shapes
-    for label, timed, k, sort in mesh_sorts:
-        check(torch.equal(run_compared(label, timed, sort), want_sa[k]),
+    for label, timed, k, D, sort in mesh_sorts:
+        check(same_sa(run_compared(label, timed, sort), want_sa[k], D),
               f"{label}: SA differs in the compared run")
     check(fmi_bytes(run_compared("mesh build D=4", True, build)) == want_fmi,
           "the sharded build's .fmi bytes differ in the compared run")
-    del want_sa, want_fmi, mesh_sorts
+    del want_sa, want_fmi, mesh_sorts, sa_blocks
 
     query = fm_sharded.ShardedFMQuery(mesh, single)
     stats = step("ShardedFMQuery.batch_query_stats D=4 (1M x 25)",
@@ -785,16 +849,25 @@ def phase_mesh(torch, np, kernels, fa, text_dev, pats, qw, single, occ,
         *fm_query_time.k2_bound(single, chunk.shape[0], chunk.numel(),
                                 lf_steps),
     )}
-    say(f"mesh on one card ({smi}), four shards (two for bitonic) on "
-        f"cuda:0, n={N - 1}: every SA bit-identical to the single-device SA, "
-        f"the sharded build's .fmi byte-identical, every one of their "
-        f"{compared[0]} local sorts equal to K1's plain version (a second, "
-        f"untimed run), row-sharded stats occ "
+    say(f"mesh on one card ({smi}), D shards on cuda:0, n={N - 1}, each "
+        "SA and table in per-shard blocks from the host text: every SA "
+        "bit-identical to the single-device SA, the sharded build's .fmi "
+        f"byte-identical, every one of their {compared[0]} local sorts equal "
+        "to K1's plain version (a second, untimed run); the longest tensor "
+        f"of the columnsort D=4 k=256 SA and build {longest} rows (B {B4}, "
+        f"2B + 63 {2 * B4 + 63}, N {N}); row-sharded stats occ "
         f"{occ} checksum {checksum} (the oracle's), sharded_batch_query "
         "ranges equal single-device K2's. Steps (seconds, K1 launches, K2 "
-        "launches, peak CUDA bytes): " + "; ".join(
-            f"{name} {s:.3f} s, {k1}, {k2}, {peak}"
-            for name, (s, k1, k2, peak) in steps.items())
+        "launches, peak CUDA bytes and per char, peak above the step's "
+        "start and per char): " + "; ".join(
+            f"{name} {s:.3f} s, {k1}, {k2}, {peak} ({peak / n:.1f}), {own} "
+            f"({own / n:.1f})"
+            for name, (s, k1, k2, peak, own) in steps.items())
+        + "; per-card cost of a D-card mesh from the k=-1 peaks above the "
+        "start, N (r + t / D) fitted over D = 2, 4, 8, B/char of a "
+        "shard's block (r, t, r + t): " + "; ".join(
+            f"{algo} {r:.1f}, {t:.1f}, {c:.1f}"
+            for algo, (r, t, c) in per_card.items())
         + "; K1 at the mesh's local-sort shapes, ms, plain ms, bound ms: "
         + "; ".join(f"{name} {t:.4f}, {p:.4f}, {b:.5f} ({by})"
                     for name, (t, p, b, by) in k1_rows.items())
@@ -1268,8 +1341,8 @@ def main() -> int:
     k1_rows = phase_k1_shapes(torch, smi, err, k1_shapes)
     del k1_shapes
     mesh_steps, mesh_k1_rows, k2_rows = phase_mesh(
-        torch, np, kernels, fa, text_dev, pats, qw, fmi, occ, checksum, err,
-        smi)
+        torch, np, kernels, fa, text, text_dev, pats, qw, fmi, occ, checksum,
+        err, smi)
     k1_rows.update(mesh_k1_rows)
 
     # ---- 8. the probe path, then the probes against their plain versions
@@ -1435,7 +1508,7 @@ def main() -> int:
             "suffix_sort --external -k 256": ext_launches,
             "suffix_sort -k 256 routed out of core": routed_launches,
             "get_suffix_array k=256": general_launches,
-            **{name: k1 for name, (_, k1, _, _) in mesh_steps.items()
+            **{name: k1 for name, (_, k1, _, _, _) in mesh_steps.items()
                if k1},
         },
         "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
@@ -1447,7 +1520,7 @@ def main() -> int:
     report["kernels"][1].update({
         "launches_by_path": {
             "main path": launches["fm_backward_search"],
-            **{name: k2 for name, (_, _, k2, _) in mesh_steps.items()
+            **{name: k2 for name, (_, _, k2, _, _) in mesh_steps.items()
                if k2},
         },
         "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,

@@ -809,6 +809,19 @@ def read_meta(fmi_path: str) -> dict | None:
     return meta
 
 
+def lookup_seed_words(L: int, device) -> torch.Tensor:
+    """Every length-L seed, 2-bit packed (int32 bits [4**L, ceil(L/16)]),
+    seed i's symbol j the j-th most significant digit of i in base 4: the
+    queries of the lookup table's build."""
+    keys = torch.arange(4**L, dtype=torch.int64, device=device)
+    words = torch.zeros((4**L, -(-L // 16)), dtype=torch.int64, device=device)
+    for j in range(L):  # symbol j: first = most significant
+        words[:, j // 16] |= ((keys >> (2 * (L - 1 - j))) & 3) << (
+            2 * (j % 16)
+        )
+    return pack.to_u32_bits(words)
+
+
 def _ragged_rows(beg: np.ndarray, lens: np.ndarray):
     """Host-side ragged expansion of per-query [beg, beg+len) row
     ranges: returns (rows int64[R], starts int64[Q+1]) with
@@ -905,17 +918,9 @@ class FMIndex:
             lookup = torch.tensor([0, N], dtype=torch.int64, device=dev)
         else:
             L = self.lookup_len
-            keys = torch.arange(4**L, dtype=torch.int64, device=dev)
-            words = torch.zeros(
-                (4**L, -(-L // 16)), dtype=torch.int64, device=dev
-            )
-            for j in range(L):  # symbol j: first = most significant
-                words[:, j // 16] |= ((keys >> (2 * (L - 1 - j))) & 3) << (
-                    2 * (j % 16)
-                )
             beg, _end, _ = get_range_packed_device(
-                self.arrays, pack.to_u32_bits(words), L, 0, early_stop=False,
-                blocks=self.blocks,
+                self.arrays, lookup_seed_words(L, dev), L, 0,
+                early_stop=False, blocks=self.blocks,
             )
             lookup = torch.cat([beg, torch.tensor([N], device=dev)])
         self.arrays = self.arrays._replace(lookup=lookup)

@@ -65,13 +65,22 @@ def _text_values(text: torch.Tensor) -> torch.Tensor:
     return vals.to(torch.int64)
 
 
+def _window_values(text: torch.Tensor, start: int, n: int, length: int,
+                   plus: int) -> torch.Tensor:
+    """int64 [length]: the characters of ``text`` -- a window holding
+    characters [start, start + len(text)) of a text of ``n`` -- plus
+    ``plus``, zero from position n on and past the window."""
+    out = torch.zeros(length, dtype=torch.int64, device=text.device)
+    m = max(min(n - start, text.shape[0], length), 0)
+    out[:m] = _text_values(text[:m]) + plus
+    return out
+
+
 def shifted_text(text: torch.Tensor, max_chars: int) -> torch.Tensor:
     """Return text+1 as int64, zero-padded so any window of
     ``max_chars`` characters starting at p <= n is in bounds."""
     n = text.shape[0]
-    padded = torch.zeros(n + max_chars, dtype=torch.int64, device=text.device)
-    padded[:n] = _text_values(text) + 1
-    return padded
+    return _window_values(text, 0, n, n + max_chars, 1)
 
 
 def key_word(
@@ -102,6 +111,10 @@ def suffix_key_words(
     n_chars: int,
     char_offset: int = 0,
     alphabet: Alphabet = DNA,
+    *,
+    start: int = 0,
+    n: int | None = None,
+    rows: int | None = None,
 ):
     """Packed key words covering ``n_chars`` characters starting at
     ``char_offset`` of every suffix 0..n (inclusive of the empty suffix at
@@ -109,27 +122,40 @@ def suffix_key_words(
     in the reference where SA[0] = n).
 
     Returns a list of int64 tensors of length n+1, most-significant first.
+
+    Block form: with ``n`` given, ``text`` is a window holding characters
+    [start, start + len(text)) of a text of n characters, and the words
+    are those of the ``rows`` suffixes from ``start`` on: rows [start,
+    start + rows) of the whole text's result (zero past row n). The window
+    must reach char_offset + n_chars - 1 characters past its last suffix,
+    or the end of the text.
     """
-    n = text.shape[0]
+    if n is None:
+        n = text.shape[0]
+    if rows is None:
+        rows = n + 1 - start
     cpw = alphabet.chars_per_word
     n_words = -(-n_chars // cpw)
-    padded = shifted_text(text, char_offset + n_words * cpw)
+    padded = _window_values(text, start, n,
+                            rows + char_offset + n_words * cpw, 1)
     words = []
     remaining = n_chars
     for w in range(n_words):
         chars = min(remaining, cpw)
         words.append(
-            key_word(padded, n + 1, char_offset + w * cpw, chars, alphabet)
+            key_word(padded, rows, char_offset + w * cpw, chars, alphabet)
         )
         remaining -= chars
     return words
 
 
 def suffix_key_words_2bit(
-    text: torch.Tensor, n_chars: int, char_offset: int = 0
+    text: torch.Tensor, n_chars: int, char_offset: int = 0, *,
+    start: int = 0, n: int | None = None, rows: int | None = None,
 ):
     """Raw 2-bit packed DNA key words: 16 chars per 32-bit word,
-    big-endian, past-end positions contribute 0.
+    big-endian, past-end positions contribute 0. ``start``, ``n`` and
+    ``rows`` give the block form of :func:`suffix_key_words`.
 
     Raw 2-bit packing cannot distinguish an 'A' run from running out of
     text; callers MUST pair these words with a shorter-first key
@@ -137,22 +163,23 @@ def suffix_key_words_2bit(
     the reference's end-of-text rule (reference:
     include/biovoltron/algo/sort/kiss1_core.hpp:131-134).
     """
-    n = text.shape[0]
+    if n is None:
+        n = text.shape[0]
+    if rows is None:
+        rows = n + 1 - start
     cpw = 16
     n_words = -(-n_chars // cpw)
-    padded = torch.zeros(
-        n + char_offset + n_words * cpw, dtype=torch.int64, device=text.device
-    )
-    padded[:n] = _text_values(text)
+    padded = _window_values(text, start, n,
+                            rows + char_offset + n_words * cpw, 0)
     words = []
     remaining = n_chars
     for w in range(n_words):
         chars = min(remaining, cpw)
-        acc = torch.zeros(n + 1, dtype=torch.int64, device=text.device)
+        acc = torch.zeros(rows, dtype=torch.int64, device=text.device)
         for j in range(chars):
             off = char_offset + w * cpw + j
             shift = 2 * (cpw - 1 - j)
-            acc |= padded[off : off + n + 1] << shift
+            acc |= padded[off : off + rows] << shift
         words.append(acc & U32_MASK)
         remaining -= chars
     return words
@@ -165,7 +192,8 @@ def clamped_suffix_len(n: int, cover: int, device) -> torch.Tensor:
     return torch.clamp(n - p, max=cover)
 
 
-def fused_end_pos(n: int, cover: int, device) -> torch.Tensor:
+def fused_end_pos(n: int, cover: int, device, *, start: int = 0,
+                  rows: int | None = None) -> torch.Tensor:
     """One word encoding BOTH the shorter-first end-of-text rule and the
     ascending-position tiebreak for a ``cover``-character key window:
 
@@ -178,8 +206,12 @@ def fused_end_pos(n: int, cover: int, device) -> torch.Tensor:
 
     Decode: p = n - fused if fused < cover else fused - cover; the
     clamped length (the group-identity component) is min(fused, cover).
+    Block form: the ``rows`` positions from ``start`` on (past n the
+    value is meaningless: those rows are pads).
     """
-    p = torch.arange(n + 1, dtype=torch.int64, device=device)
+    if rows is None:
+        rows = n + 1 - start
+    p = start + torch.arange(rows, dtype=torch.int64, device=device)
     ln = n - p
     return torch.where(ln < cover, ln, p + cover)
 

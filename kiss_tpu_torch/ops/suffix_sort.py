@@ -191,38 +191,56 @@ def _pack_fields(fields):
     made only when packed, and every finished word is stored as 32 bits
     at once, so a wide round never holds all its int64 keys at a time.
     """
+    def one(arr):
+        return lambda: [arr() if callable(arr) else arr]
+
+    words, placements = _pack_blocks([(one(a), b, al) for a, b, al in fields])
+    return words[0], placements
+
+
+def _pack_blocks(fields):
+    """:func:`_pack_fields` over a list of blocks: each field's value is
+    a list of tensors, one a block, or a zero-argument callable that
+    returns one (made only when packed). Returns (a list of words, one
+    int32 [W, N_b] a block, placements)."""
     placements, n_words = _field_layout([(b, a) for _, b, a in fields])
     words = None
-    acc: list = [None] * n_words
+    acc: list = []
     flushed = 0  # words [0, flushed) are complete and stored
 
-    def put(w, piece):
-        acc[w] = piece if acc[w] is None else acc[w].bitwise_or_(piece)
+    def put(i, w, piece):
+        acc[i][w] = (piece if acc[i][w] is None
+                     else acc[i][w].bitwise_or_(piece))
 
     def flush(upto):
         nonlocal flushed
         while flushed < upto:
-            if acc[flushed] is not None:
-                words[flushed] = pack.to_u32_bits(acc[flushed])
-                acc[flushed] = None
+            for i, a in enumerate(acc):
+                if a[flushed] is not None:
+                    words[i][flushed] = pack.to_u32_bits(a[flushed])
+                    a[flushed] = None
             flushed += 1
 
-    for (arr, bits, _), (start, _) in zip(fields, placements):
-        arr = arr() if callable(arr) else arr
+    for (arrs, bits, _), (start, _) in zip(fields, placements):
+        arrs = arrs() if callable(arrs) else list(arrs)
         if words is None:
-            words = torch.zeros((n_words, arr.shape[0]), dtype=torch.int32,
-                                device=arr.device)
+            words = [torch.zeros((n_words, a.shape[0]), dtype=torch.int32,
+                                 device=a.device) for a in arrs]
+            acc = [[None] * n_words for _ in arrs]
         flush(start // 32)  # fields come MSB first: earlier words are done
-        arr = arr.to(torch.int64) & ((1 << bits) - 1)
         end = start + bits
         w0, w1 = start // 32, (end - 1) // 32
-        if w0 == w1:
-            put(w0, arr << (32 * (w0 + 1) - end))
-        else:
-            spill = end - 32 * (w0 + 1)
-            put(w0, arr >> spill)
-            put(w1, (arr << (32 - spill)) & pack.U32_MASK)
-        del arr
+        for i in range(len(arrs)):
+            arr = arrs[i].to(torch.int64) & ((1 << bits) - 1)
+            arrs[i] = None
+            if w0 == w1:
+                put(i, w0, arr << (32 * (w0 + 1) - end))
+            else:
+                spill = end - 32 * (w0 + 1)
+                put(i, w0, arr >> spill)
+                put(i, w1, (arr << (32 - spill)) & pack.U32_MASK)
+            del arr
+        del arrs
     flush(n_words)
     return words, placements
 
@@ -497,7 +515,7 @@ def _is_full(rnd: _Round, cover: int) -> bool:
 
 
 def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
-              sort_impl=radix_sort_wide, stage_logs: bool = True):
+              sort_impl=radix_sort_wide):
     """Run a sort plan from the host: seed, then rounds until the plan ends
     or every suffix is a singleton group. With ``refine_tail`` an
     unbounded plan switches to compacted tail refinement after
@@ -505,13 +523,11 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
     ``kiss_tpu``'s ``_run_plan``); without it every round runs over the
     whole array (the
     single-program path, ``k_ordered_suffix_array_device``). Both give
-    the identical SA. ``sort_impl`` is the multi-word sort seam.
-    ``stage_logs=False`` drops the per-stage ``--verbose`` lines, as
-    ``kiss_tpu``'s jitted mesh pipeline has none."""
+    the identical SA. ``sort_impl`` is the multi-word sort seam."""
     nrounds = len(plan.rounds)
     # per-phase stopwatch logs under --verbose (reference model:
     # kiss1_core.hpp:244-267 / README.md:94-101 stage table)
-    dbg = stage_logs and timing.debug_enabled()
+    dbg = timing.debug_enabled()
     sa, rank, done = timing.staged(
         f"seed_sort(chars={plan.seed_chars})" if dbg else None,
         lambda: _seed_sort(
@@ -710,14 +726,13 @@ class _SorterBase:
         d = _mesh_size_for(num_threads, device)
         if d > 1:
             from kiss_tpu_torch.parallel import make_mesh
-            from kiss_tpu_torch.parallel.dsort import (
-                sharded_k_ordered_suffix_array,
+            from kiss_tpu_torch.parallel.sharded_plan import (
+                sharded_sa_blocks,
             )
 
-            sa = sharded_k_ordered_suffix_array(
-                make_mesh(d, device=device), ref, k, strategy=cls.strategy
-            )
-            return pack.to_u32_bits(sa).cpu().numpy().view(np.uint32)
+            mesh = make_mesh(d, device=device)
+            blocks = sharded_sa_blocks(mesh, ref, k, strategy=cls.strategy)
+            return mesh.to_host(blocks)[: len(ref) + 1].astype(np.uint32)
         return k_ordered_suffix_array(
             ref, k, pack.DNA, strategy=cls.strategy, device=device
         )

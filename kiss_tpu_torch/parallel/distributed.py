@@ -6,12 +6,15 @@ knob: reference src/main.cpp:22-26). Here several processes form one mesh
 through ``torch.distributed``: each process holds its own shards, and the
 mesh's collectives (:class:`kiss_tpu_torch.parallel.mesh.Mesh`) go through
 the process group -- gloo on the CPU, NCCL on cards. Every process runs
-the same program on the same (replicated) inputs:
+the same program on the same host inputs (the text, replicated in host
+memory); each uploads only its own shards' blocks of it and holds only
+its own blocks of every length-N array of the pipeline:
 
-    from kiss_tpu_torch.parallel import distributed, dsort
+    from kiss_tpu_torch.parallel import distributed, sharded_plan
     distributed.initialize("tcp://localhost:29500", world_size=2, rank=r)
     mesh = distributed.global_mesh(["cpu", "cpu"])  # two shards here
-    sa = dsort.sharded_k_ordered_suffix_array(mesh, text, k)
+    blocks = sharded_plan.sharded_sa_blocks(mesh, text, k)  # this
+    # process's SA blocks; mesh.to_host(blocks) gathers the SA on the host
 
 Nothing tells a program of a cluster: the address, the world size and
 the rank come from the caller, or from the environment (``MASTER_ADDR``,

@@ -21,12 +21,18 @@ A block is one int32 tensor [W, B] of key words holding uint32 bits, word
 which is every local sort, on the block's own device. All-ones keys are
 the largest, as K1 sorts unsigned.
 
-The facade keeps the port's sort seam, ``sort_impl(keys int32 [W, N]) ->
-(sorted, perm)``, stable. ``kiss_tpu``'s mesh sort instead takes every
-operand as a key, with a unique position put last by the caller; here the
-facade appends the global row id as the last key word itself (pads get
+:func:`sort_blocks` is the seam on blocks: the keys of a global array
+already laid out over the shards (:func:`kiss_tpu_torch.parallel.mesh.
+block_rows`) get the global row id appended as the last key word (pads get
 all-ones keys and the ids N, N + 1, ...), which makes the order total and
-equal to the stable sort's, and hands that word back as ``perm``.
+equal to the stable sort's, and come back sorted in the same layout. The
+pipeline of :mod:`.sharded_plan` and the build of :mod:`.fm_build` call it.
+``kiss_tpu``'s mesh sort instead takes every operand as a key, with a
+unique position put last by the caller.
+
+The facade :func:`make_sharded_sort_impl` keeps the port's sort seam,
+``sort_impl(keys int32 [W, N]) -> (sorted, perm)``, stable, for keys on
+the lead device: split, :func:`sort_blocks`, join.
 """
 
 from __future__ import annotations
@@ -135,14 +141,68 @@ class SampleSortOverflow(RuntimeError):
     sampling assumptions)."""
 
 
-def _block_multiple(n: int, m: int) -> int:
-    return -(-n // m) * m
+def auto_algorithm(d: int) -> str:
+    """What ``algorithm="auto"`` runs on d shards: bitonic for d <= 2,
+    columnsort otherwise (``kiss_tpu``'s rule)."""
+    return "bitonic" if d <= 2 else "columnsort"
+
+
+def _algorithm(mesh, algorithm: str, B: int) -> str:
+    """The algorithm ``algorithm`` names ("auto": :func:`auto_algorithm`)
+    for blocks of B rows, checked: bitonic needs a power-of-two mesh,
+    columnsort B % 2D == 0 and B >= 2 (D - 1)**2, the sample sort B % 2D
+    == 0 and (``kiss_tpu``'s int32 row accounting) D B < 2**31."""
+    D = mesh.size
+    algo = auto_algorithm(D) if algorithm == "auto" else algorithm
+    if algo not in ("bitonic", "columnsort", "sample"):
+        raise ValueError(f"unknown sort algorithm {algorithm!r}")
+    if algo == "bitonic" and D & (D - 1):
+        raise ValueError("block-bitonic needs a power-of-2 mesh; use "
+                         "columnsort")
+    if algo == "sample" and B * D >= 2**31:
+        raise ValueError(
+            f"sample sort row accounting is int32: global N = {B * D} "
+            '(padded) must be < 2**31; use algorithm="columnsort" at this '
+            "scale"
+        )
+    if algo != "bitonic" and (B % (2 * D) or B < 2 * (D - 1) ** 2):
+        raise ValueError(f"blocks of {B} rows do not suit {algo} on "
+                         f"{D} shards")
+    return algo
+
+
+def sort_blocks(mesh, blocks: list, n: int, algorithm: str = "auto") -> list:
+    """Sort the global key array whose blocks (int32 [W, B] a local
+    shard, uint32 bits, word 0 most significant) these are; its rows n ..
+    D B - 1 are pads. Returns the sorted blocks [W + 1, B] in the same
+    layout, the global row id s B + i each row came from appended as the
+    last word: a total order equal to the stable sort's, pads (all-ones
+    keys, ids from n) last. "sample" raises :class:`SampleSortOverflow`
+    when a bucket overflows. The list ``blocks`` is emptied: each key
+    block is released once its copy with the row ids is made."""
+    B = blocks[0].shape[1]
+    algo = _algorithm(mesh, algorithm, B)
+    full = []
+    for s in mesh.local:
+        x = blocks.pop(0)
+        rid = s * B + torch.arange(B, dtype=torch.int64, device=x.device)
+        full.append(torch.cat([torch.where(rid < n, x, -1),
+                               pack.to_u32_bits(rid)[None]]))
+        del x, rid
+    if algo == "sample":
+        from kiss_tpu_torch.parallel import ssort
+
+        return ssort.block_sample_sort(mesh, full)
+    if algo == "columnsort":
+        return _block_columnsort(mesh, full)
+    return _block_bitonic(mesh, full)
 
 
 def make_sharded_sort_impl(mesh, algorithm: str = "auto"):
     """A sort with the port's seam, ``sort_impl(keys int32 [W, N]) ->
-    (sorted [W, N], perm int64 [N])``, stable, that sorts on ``mesh``.
-    ``keys`` lie on the lead device; so do the results.
+    (sorted [W, N], perm int64 [N])``, stable, that sorts on ``mesh``:
+    ``keys`` (on the lead device) are split into the pipeline's blocks,
+    sorted by :func:`sort_blocks` and joined back onto the lead device.
 
     ``algorithm``: "columnsort", "bitonic", "sample" or "auto" (bitonic
     for D <= 2, columnsort otherwise). "sample" is the splitter sample
@@ -150,51 +210,19 @@ def make_sharded_sort_impl(mesh, algorithm: str = "auto"):
     :class:`SampleSortOverflow` when a bucket overflows. Its row
     accounting is that of ``kiss_tpu``: it rejects a padded N of 2**31 or
     more."""
-    D = mesh.size
-    algo = algorithm
-    if algo == "auto":
-        algo = "bitonic" if D <= 2 else "columnsort"
-    if algo not in ("bitonic", "columnsort", "sample"):
-        raise ValueError(f"unknown sort algorithm {algorithm!r}")
-    if algo == "bitonic" and D & (D - 1):
-        raise ValueError("block-bitonic needs a power-of-2 mesh; use "
-                         "columnsort")
+    from kiss_tpu_torch.parallel.mesh import block_rows
+
+    _algorithm(mesh, algorithm, block_rows(0, mesh.size))
 
     def sharded_sort(keys: torch.Tensor):
         W, n = keys.shape
-        if algo == "columnsort":
-            # B even, divisible by D, and >= 2 (D - 1)**2
-            B = _block_multiple(-(-n // D), 2 * D)
-            B = max(B, _block_multiple(2 * (D - 1) ** 2, 2 * D))
-        elif algo == "sample":
-            # B % 2D == 0: the decorrelating deal reshapes by D
-            B = _block_multiple(-(-n // D), 2 * D)
-            if B * D >= 2**31:
-                raise ValueError(
-                    f"sample sort row accounting is int32: global N = "
-                    f"{B * D} (padded) must be < 2**31; use "
-                    'algorithm="columnsort" at this scale'
-                )
-        else:
-            B = _block_multiple(n, D) // D
-        n_pad = B * D
-        full = torch.full((W + 1, n_pad), -1, dtype=torch.int32,
-                          device=keys.device)
-        full[:W, :n] = keys
-        full[W] = pack.to_u32_bits(
-            torch.arange(n_pad, dtype=torch.int64, device=keys.device)
-        )
+        B = block_rows(n, mesh.size)
+        _algorithm(mesh, algorithm, B)
+        full = keys.new_zeros((W, B * mesh.size))
+        full[:, :n] = keys
         blocks = mesh.split(full)
         del full
-        if algo == "sample":
-            from kiss_tpu_torch.parallel import ssort
-
-            blocks = ssort.block_sample_sort(mesh, blocks)
-        elif algo == "columnsort":
-            blocks = _block_columnsort(mesh, blocks)
-        else:
-            blocks = _block_bitonic(mesh, blocks)
-        out = mesh.join(blocks)
+        out = mesh.join(sort_blocks(mesh, blocks, n, algorithm))
         del blocks
         return out[:W, :n], pack.as_u32(out[W, :n])
 
@@ -210,22 +238,13 @@ def text_on(mesh, text) -> torch.Tensor:
 
 def sharded_k_ordered_suffix_array(mesh, text, k, algorithm: str = "auto",
                                    strategy: str = "wide"):
-    """k-ordered SA (int64 [n + 1] on the lead device) with every global
-    sort of the pipeline on the mesh (columnsort by default, see
-    :func:`make_sharded_sort_impl`); the glue between the sorts runs on
-    the lead device. Bit-identical to the single-device sorter. With
-    ``algorithm="sample"`` an overflow of any sort raises
-    :class:`SampleSortOverflow`."""
-    from kiss_tpu_torch.ops import suffix_sort
+    """k-ordered SA (int64 [n + 1] on the lead device): the SA blocks of
+    :func:`kiss_tpu_torch.parallel.sharded_plan.sharded_sa_blocks` (every
+    length-N array of the pipeline sharded, every sort a mesh sort, by
+    default columnsort) joined onto the lead device. Bit-identical to the
+    single-device sorter. With ``algorithm="sample"`` an overflow of any
+    sort raises :class:`SampleSortOverflow`."""
+    from kiss_tpu_torch.parallel.sharded_plan import sharded_sa_blocks
 
-    text = text_on(mesh, text)
-    n = text.shape[0]
-    if n == 0:
-        return torch.zeros(1, dtype=torch.int64, device=mesh.lead)
-    sort_impl = make_sharded_sort_impl(mesh, algorithm)
-    seed_chars, max_keys = suffix_sort._plan_shape(strategy, pack.DNA)
-    plan = suffix_sort._make_plan(
-        n, suffix_sort._normalize_k(k), pack.DNA, seed_chars, max_keys,
-    )
-    return suffix_sort._run_plan(text, plan, pack.DNA, sort_impl=sort_impl,
-                                 stage_logs=False)
+    blocks = sharded_sa_blocks(mesh, text, k, algorithm, strategy)
+    return mesh.join(blocks)[: len(text) + 1]

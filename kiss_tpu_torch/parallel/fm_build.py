@@ -18,41 +18,56 @@ tables made block by block over the mesh:
     mark rank) is computed in its shard, and one 2-word mesh sort by
     target slot is the compaction.
 
-The tables are joined onto the lead device at the end (the glue of the
-port runs there); :func:`trim_canonical` cuts them to the single-device
-build's row counts.
+The build takes the SA as blocks in the pipeline's layout
+(:func:`kiss_tpu_torch.parallel.mesh.block_rows`, as
+:func:`kiss_tpu_torch.parallel.sharded_plan.sharded_sa_blocks` returns
+it) and keeps every table in its shards (:func:`build_index_blocks`): no
+device holds a length-N array. :func:`tables_to_host` assembles the
+canonical tables on the host for ``FMIndex.save``;
+:func:`build_index_sharded` is the form with the whole SA on the lead
+device and the tables joined there.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from kiss_tpu_torch.models import fm_index as fm
 from kiss_tpu_torch.ops import pack
-from kiss_tpu_torch.parallel import dsort
+from kiss_tpu_torch.parallel.dsort import sort_blocks
+from kiss_tpu_torch.parallel.fm_sharded import ShardedArrays, sharded_get_ranges
+from kiss_tpu_torch.parallel.mesh import block_rows
 
-# rows a shard holds are padded to a multiple of this: one occ1 superblock
-# (256 rows) is a multiple of every block of the tables (occ2 16, mark
-# words 32, b_occ 64)
+# the sampled SA's shard blocks are a multiple of this: one occ1
+# superblock, as every row table's (block_rows rounds B to it)
 _ROW_ALIGN = fm.OCC1_INTV
 
+class ShardedTables(NamedTuple):
+    """An index built on the mesh: this process's blocks of each row
+    table (lists over the local shards, on their devices; shard s holds
+    the table rows of the global rows [s B, (s + 1) B), and of the sampled
+    SA the entries [s Bs, (s + 1) Bs) with Bs = ceil(N / sa_intv) rounded
+    up to D * 256, over D), ``cnt`` and ``pri`` on the lead device, and the
+    row count N. Pad rows are never selected by queries."""
 
-def _padded_rows(N: int, d: int) -> int:
-    # N + 1 so the canonical tables' final (partial) block row exists even
-    # when N divides the alignment exactly: occ2 has N//16 + 1 rows, and
-    # queries read lf_tab[N // 16]
-    blk = -(-(N + 1) // d)
-    blk = -(-blk // _ROW_ALIGN) * _ROW_ALIGN
-    return blk * d
+    bwt_words: list
+    occ1: list
+    occ2: list
+    sa_samp: list
+    b_words: list
+    b_occ: list
+    lf_tab: list
+    b_tab: list
+    cnt: torch.Tensor
+    pri: torch.Tensor
+    N: int
 
 
-def _exclusive_over_devices(mesh, local_totals: list) -> list:
-    """Exclusive prefix of the shards' totals (any shape, one a local
-    shard), each on its shard's device: the cross-shard half of the
-    count / prefix-sum idiom."""
-    allt = mesh.all_gather(local_totals)  # [D, ...]
-    return [allt[:s].sum(dim=0).to(x.device)
-            for s, x in zip(mesh.local, local_totals)]
+# the row tables of a build, each row-sharded over the mesh
+_ROW_TABLES = ShardedTables._fields[:8]
 
 
 def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
@@ -89,7 +104,7 @@ def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
     grps = [c.reshape(-1, per_sup, 4) for c in t["c16"]]
     sup_tots = [g.sum(dim=1) for g in grps]
     dev_tots = [st.sum(dim=0) for st in sup_tots]
-    offsets = _exclusive_over_devices(mesh, dev_tots)
+    offsets = mesh.exclusive_scan(dev_tots)
     totals = mesh.psum(dev_tots)
     cnt = torch.cumsum(totals, dim=0) - totals + 1
     out = {name: [] for name in ("words", "occ1", "occ2", "lf_tab",
@@ -118,7 +133,7 @@ def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
 
     marks = [v & (sa % sa_intv == 0) for v, sa in zip(t["valid"], sa_blocks)]
     c64s = [b.reshape(-1, fm.B_OCC_INTV).sum(dim=1) for b in marks]
-    b_offsets = _exclusive_over_devices(mesh, [c.sum() for c in c64s])
+    b_offsets = mesh.exclusive_scan([c.sum() for c in c64s])
     n_samp = -(-N // sa_intv)
     for b, c64, off, gidx in zip(marks, c64s, b_offsets, t["gidx"]):
         shifts = torch.arange(32, dtype=torch.int64, device=b.device)
@@ -137,67 +152,112 @@ def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
     return out, cnt, pri
 
 
-def build_index_sharded(mesh, text, sa, sa_intv: int = 4) -> fm.FMArrays:
-    """text int8 [n] and sa int64 [N = n + 1] (lead device) -> FMArrays on
-    the lead device, every row table padded to the mesh-aligned block
-    size (pad rows are never selected by queries); the canonical
-    (serialization) shapes are its leading rows, see
-    :func:`trim_canonical`. Every sort is a mesh sort; the tables are
-    made in their shards. Equal to
+def build_index_blocks(mesh, text, sa_blocks: list,
+                       sa_intv: int = 4) -> ShardedTables:
+    """text (int8 numpy or tensor, n characters) and the SA's blocks
+    (int64 [B] a local shard, the pipeline's layout: rows past n are pads)
+    -> the tables, each kept in its shards. Every sort is a mesh sort;
+    each shard uploads only its own text block. Equal to
     :func:`kiss_tpu_torch.models.fm_index.build_index_device` on the
-    canonical rows."""
-    text = dsort.text_on(mesh, text)
+    canonical rows (:func:`tables_to_host`)."""
     n = text.shape[0]
     N = n + 1
-    d = mesh.size
-    npad = _padded_rows(N, d)
-    sort_impl = dsort.make_sharded_sort_impl(mesh)
-    sa = sa.to(device=mesh.lead, dtype=torch.int64)
+    B = sa_blocks[0].shape[0]
+    rows = [s * B + torch.arange(B, dtype=torch.int64, device=x.device)
+            for s, x in zip(mesh.local, sa_blocks)]
 
     # ---- BWT by sort-gather: prev over the non-sentinel rows is a
     # permutation of [0, n) and the sentinel gets the unique key n, so slot
-    # j of the prev-sorted order needs text[j] (0 for the sentinel's slot)
-    row = torch.arange(N, dtype=torch.int64, device=mesh.lead)
-    prev = torch.where(sa == 0, n, sa - 1)
-    by_prev, _ = sort_impl(pack.to_u32_bits(torch.stack([prev, row])))
-    text_n = torch.zeros(N, dtype=torch.int32, device=mesh.lead)
-    text_n[:n] = text.view(torch.uint8).to(torch.int32)
-    by_row, _ = sort_impl(torch.stack([by_prev[1], text_n]))
-    del by_prev, text_n
-
-    # ---- pad to the mesh-aligned block size; pad SA rows carry 1 (never
-    # the sentinel, never marked)
-    bwt_pad = torch.zeros(npad, dtype=torch.int8, device=mesh.lead)
-    bwt_pad[:N] = by_row[1].to(torch.int8)
-    sa_pad = torch.ones(npad, dtype=torch.int64, device=mesh.lead)
-    sa_pad[:N] = sa
+    # j of the prev-sorted order needs text[j] (0 for the sentinel's slot,
+    # the text block's zero past n)
+    by_prev = sort_blocks(mesh, [
+        pack.to_u32_bits(torch.where(sa == 0, n, sa - 1))[None]
+        for sa in sa_blocks], N)
+    texts = mesh.scatter_host(text, B)
+    by_row = sort_blocks(mesh, [
+        torch.stack([p[1], t.view(torch.uint8).to(torch.int32)])
+        for p, t in zip(by_prev, texts)], N)
+    del by_prev, texts
+    # pad rows: BWT symbol 0, SA 1 (never the sentinel, never marked)
+    bwt = [torch.where(r < N, o[1], 0).to(torch.int8)
+           for r, o in zip(rows, by_row)]
     del by_row
-    tabs, cnt, pri = _occ_body(mesh, N, sa_intv, mesh.split(bwt_pad),
-                               mesh.split(sa_pad))
+    sa_pad = [torch.where(r < N, sa, 1) for r, sa in zip(rows, sa_blocks)]
+    tabs, cnt, pri = _occ_body(mesh, N, sa_intv, bwt, sa_pad)
+    del bwt
 
     # ---- sampled SA: one mesh sort by target slot (the dataflow form of
-    # build_sa's serial compaction, fm_index.hpp:331-371)
+    # build_sa's serial compaction, fm_index.hpp:331-371), then its first
+    # ceil(N / sa_intv) slots re-blocked into Bs-row blocks
     if sa_intv == 1:
-        sa_samp = sa
+        sa_samp = sa_pad
     else:
-        keys = torch.stack([mesh.join(tabs["samp_key"]), sa_pad])
-        samp_sorted, _ = sort_impl(pack.to_u32_bits(keys))
-        del keys
-        # the sample count rounded up to a whole number of aligned blocks;
-        # rows past ceil(N / sa_intv) sort behind every real mark rank and
-        # are never gathered
+        samp = sort_blocks(mesh, [
+            pack.to_u32_bits(torch.stack([k, sa]))
+            for k, sa in zip(tabs["samp_key"], sa_pad)], N)
         ns = -(-N // sa_intv)
-        ns_pad = -(-ns // (d * _ROW_ALIGN)) * (d * _ROW_ALIGN)
-        sa_samp = pack.as_u32(samp_sorted[1, :ns_pad])
-    join = {name: mesh.join(tabs[name], dim=0)
-            for name in ("words", "occ1", "occ2", "b_words", "b_occ",
-                         "lf_tab", "b_tab")}
+        Bs = -(-ns // (mesh.size * _ROW_ALIGN)) * _ROW_ALIGN
+        sa_samp = mesh.take([pack.as_u32(o[1]) for o in samp],
+                            [s * Bs for s in range(mesh.size)], Bs)
+        del samp
+    return ShardedTables(
+        tabs["words"], tabs["occ1"], tabs["occ2"], sa_samp, tabs["b_words"],
+        tabs["b_occ"], tabs["lf_tab"], tabs["b_tab"], cnt, pri, N,
+    )
+
+
+def sharded_lookup(mesh, tables: ShardedTables,
+                   lookup_len: int) -> torch.Tensor:
+    """The lookup table of an index built on the mesh (``FMIndex.
+    _build_lookup``): one backward search of every length-``lookup_len``
+    seed, without early stop, over the row-sharded tables. On the lead
+    device."""
+    N = tables.N
+    dev = tables.cnt.device
+    if lookup_len == 0:
+        return torch.tensor([0, N], dtype=torch.int64, device=dev)
+    arrays = ShardedArrays(
+        lf_tab=tables.lf_tab, b_tab=tables.b_tab, sa_samp=tables.sa_samp,
+        cnt=tables.cnt, pri=tables.pri,
+        lookup=torch.tensor([0, N], dtype=torch.int64, device=dev),
+    )
+    beg, _, _ = sharded_get_ranges(
+        mesh, arrays, fm.lookup_seed_words(lookup_len, dev), lookup_len,
+        early_stop=False,
+    )
+    return torch.cat([beg, torch.tensor([N], device=dev)])
+
+
+def tables_to_host(mesh, tables: ShardedTables, lookup: torch.Tensor,
+                   sa_intv: int) -> fm.FMArrays:
+    """The canonical (serialization-layout) FMArrays of an index built on
+    the mesh, as CPU tensors: each table's blocks downloaded one by one
+    and cut by :func:`trim_canonical` -- what ``FMIndex.save`` writes."""
+    host = {name: torch.from_numpy(mesh.to_host(getattr(tables, name),
+                                                dim=0))
+            for name in _ROW_TABLES}
+    return trim_canonical(fm.FMArrays(
+        cnt=tables.cnt.cpu(), pri=tables.pri.cpu(), lookup=lookup.cpu(),
+        **host), tables.N, sa_intv)
+
+
+def build_index_sharded(mesh, text, sa, sa_intv: int = 4) -> fm.FMArrays:
+    """text int8 [n] and the whole sa int64 [N = n + 1] (any device) ->
+    FMArrays on the lead device: :func:`build_index_blocks` of the SA's
+    blocks, each table joined there, padded to the mesh's blocks (pad
+    rows are never selected by queries); the canonical (serialization)
+    shapes are its leading rows, see :func:`trim_canonical`."""
+    if not isinstance(text, torch.Tensor):
+        text = torch.from_numpy(np.ascontiguousarray(text, dtype=np.int8))
+    N = text.shape[0] + 1
+    B = block_rows(N, mesh.size)
+    tables = build_index_blocks(
+        mesh, text, mesh.scatter_host(sa.to(torch.int64), B), sa_intv)
     lookup = torch.tensor([0, N], dtype=torch.int64, device=mesh.lead)
     return fm.FMArrays(
-        join["words"], join["occ1"], join["occ2"], cnt, pri, sa_samp,
-        join["b_words"], join["b_occ"], lookup, join["lf_tab"],
-        join["b_tab"],
-    )
+        cnt=tables.cnt, pri=tables.pri, lookup=lookup,
+        **{name: mesh.join(getattr(tables, name), dim=0)
+           for name in _ROW_TABLES})
 
 
 def trim_canonical(arrays: fm.FMArrays, N: int, sa_intv: int) -> fm.FMArrays:
@@ -213,7 +273,7 @@ def trim_canonical(arrays: fm.FMArrays, N: int, sa_intv: int) -> fm.FMArrays:
         # the single-device build keeps 1-row placeholders for the mark
         # structures when the SA is unsampled
         nbw, nbo = 1, 1
-        ns = arrays.sa_samp.shape[0]
+        ns = N
     else:
         nbw = 2 * (-(-N // 64))
         nbo = -(-N // fm.B_OCC_INTV)

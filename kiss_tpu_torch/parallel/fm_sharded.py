@@ -169,10 +169,12 @@ def _occ_sharded(mesh, arrays: ShardedArrays, c, i):
 
 
 def sharded_get_ranges(mesh, arrays: ShardedArrays, qwords: torch.Tensor,
-                       qlen: int, lookup_len: int = 0):
+                       qlen: int, lookup_len: int = 0,
+                       early_stop: bool = True):
     """Backward search of 2-bit packed patterns (``qwords`` int32 bits on
     the lead device) against the row-sharded index. Same results as
-    :func:`kiss_tpu_torch.models.fm_index.get_range_packed_device`."""
+    :func:`kiss_tpu_torch.models.fm_index.get_range_packed_device`, also
+    without ``early_stop`` (the lookup table's build)."""
     q = qwords.shape[0]
     dev = qwords.device
     qw = pack.as_u32(qwords)
@@ -199,10 +201,14 @@ def sharded_get_ranges(mesh, arrays: ShardedArrays, qwords: torch.Tensor,
                            torch.cat([beg, end]))
         nbeg = arrays.cnt[c] + occ[:q]
         nend = arrays.cnt[c] + occ[q:]
-        alive = end > beg
-        beg = torch.where(alive, nbeg, beg)
-        end = torch.where(alive, nend, end)
-        offs = torch.where(alive, j, offs)
+        if early_stop:
+            alive = end > beg
+            beg = torch.where(alive, nbeg, beg)
+            end = torch.where(alive, nend, end)
+            offs = torch.where(alive, j, offs)
+        else:
+            beg, end = nbeg, nend
+            offs = torch.full_like(offs, j)
     return beg, end, offs
 
 

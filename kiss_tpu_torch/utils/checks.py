@@ -1,13 +1,16 @@
 """Helpers that check a run from outside its entry points: keep what a
-function returns while a CLI call runs it, collect the log lines, and
-sample a k-ordered suffix array on the device. ``chip_smoke.py``,
-``experiments/external_scale.py`` and the tests use them."""
+function returns while a CLI call runs it, collect the log lines, record
+the longest tensor a run makes, and sample a k-ordered suffix array on
+the device. ``chip_smoke.py``, ``experiments/external_scale.py`` and the
+tests use them."""
 
 from __future__ import annotations
 
 import logging
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 
 class Kept:
@@ -49,6 +52,24 @@ class LogLines(logging.Handler):
         if not hits:
             raise RuntimeError(f"no log line starting {prefix!r}")
         return hits[-1]
+
+
+class LongestTensor(TorchDispatchMode):
+    """While active (``with LongestTensor() as rec``), ``rec.longest`` is
+    the largest dimension of every tensor any op has produced: the
+    residency check of the mesh pipeline, which must make no tensor as
+    long as the text on any shard."""
+
+    def __init__(self):
+        super().__init__()
+        self.longest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.dim():
+                self.longest = max(self.longest, max(t.shape))
+        return out
 
 
 def check_k_sorted_sample(text_dev, sa, k: int, samples: int) -> None:

@@ -97,12 +97,14 @@ def _tensors(x):
 
 def sync(x) -> None:
     """Wait for the device work producing ``x`` (a tensor, or a tuple /
-    list / NamedTuple of them): ``torch.cuda.synchronize`` on the device
-    of the first CUDA tensor found. CPU tensors are already complete."""
+    list / NamedTuple of them): ``torch.cuda.synchronize`` on each device
+    holding one of its CUDA tensors (a mesh's blocks lie on several). CPU
+    tensors are already complete."""
+    synced = set()
     for t in _tensors(x):
-        if t.is_cuda:
+        if t.is_cuda and t.device not in synced:
             torch.cuda.synchronize(t.device)
-            return
+            synced.add(t.device)
 
 
 def _memory_line():

@@ -208,7 +208,8 @@ def test_in_core_capacity(monkeypatch):
             == tcli.EXTERNAL_THRESHOLD_FALLBACK)
     monkeypatch.setenv("KISS_TPU_INCORE_CAP", "1234")
     assert tcli.in_core_capacity_chars("cuda") == 1234
-    assert tcli.in_core_capacity_chars("cuda", 4) == 1234
+    # a mesh holds 1/D of every length-N array a card: D cards' capacity
+    assert tcli.in_core_capacity_chars("cuda", 4) == 4 * 1234
     monkeypatch.delenv("KISS_TPU_INCORE_CAP")
     total = 80 * 10**9
     monkeypatch.setattr(tcli.torch.cuda, "mem_get_info",
@@ -216,10 +217,11 @@ def test_in_core_capacity(monkeypatch):
     usable = int(total * tcli.IN_CORE_MEM_FRACTION)
     assert (tcli.in_core_capacity_chars("cuda")
             == usable // tcli.IN_CORE_BYTES_PER_CHAR)
-    # a mesh's lead card holds the glue and the mesh sort's buffers
-    assert (tcli.in_core_capacity_chars("cuda", 2)
-            == usable // tcli.MESH_IN_CORE_BYTES_PER_CHAR
-            < tcli.in_core_capacity_chars("cuda"))
+    # a mesh's card holds its blocks at the measured cost of the algorithm
+    # -t N sorts with (bitonic on two cards, columnsort on more)
+    for d, algo in ((2, "bitonic"), (4, "columnsort"), (8, "columnsort")):
+        assert (tcli.in_core_capacity_chars("cuda", d)
+                == d * (usable // tcli.MESH_BLOCK_BYTES_PER_CHAR[algo]))
 
 
 def test_sidecar_routes_locate(tmp_path, caplog):
@@ -345,7 +347,7 @@ def test_num_threads_mesh_matches_kiss_tpu(mesh_corpus, caplog, monkeypatch,
     give kiss_tpu's lines, counts and checksum."""
     import kiss_tpu.parallel.dsort as jdsort
 
-    from kiss_tpu_torch.parallel import dsort as tdsort
+    from kiss_tpu_torch.parallel import sharded_plan
 
     jfa, tfa, t1fa, bpath, text = mesh_corpus
     monkeypatch.setattr(tss, "_mesh_size_for",
@@ -364,9 +366,11 @@ def test_num_threads_mesh_matches_kiss_tpu(mesh_corpus, caplog, monkeypatch,
                     (["suffix_sort", "-s", "prefix_doubling", "-k", "-1"], -1),
                     (["fmindex_build"], -1)):
         with Kept(jdsort, "sharded_k_ordered_suffix_array") as jkept, \
-                Kept(tdsort, "sharded_k_ordered_suffix_array") as tkept:
+                Kept(sharded_plan, "sharded_sa_blocks") as tkept:
             lines = both(argv)
-        (jsa,), (tsa,) = jkept.values, tkept.values
+        (jsa,), (blocks,) = jkept.values, tkept.values
+        assert len(blocks) == d  # the SA leaves the mesh as its blocks
+        tsa = torch.cat(blocks)[: len(text) + 1]
         np.testing.assert_array_equal(tsa.numpy(), np.asarray(jsa))
         np.testing.assert_array_equal(
             tsa.numpy(), tss.k_ordered_suffix_array(text, k, device="cpu"))
@@ -429,22 +433,32 @@ def test_num_threads_mesh_bounded_archive(mesh_corpus, caplog, monkeypatch,
         assert a.read() == b.read()
 
 
-def test_mesh_keeps_single_device_capacity(mesh_corpus, caplog, monkeypatch):
-    """The port's mesh never raises the in-core capacity over the lead
-    card's (its glue runs there at full length), where kiss_tpu.cli
-    multiplies it by the device count: with the capacity between n / 2
-    and n, ``-t 2`` routes out of core here and logs the capacity and the
-    mesh size, and the SA is the in-core one."""
-    _, tfa, _, _, text = mesh_corpus
+@pytest.mark.parametrize("d", [2, 4])
+def test_mesh_keeps_single_device_capacity(mesh_corpus, caplog, monkeypatch,
+                                           d):
+    """Each card of a mesh keeps the single-device capacity, so ``-t d``
+    multiplies it by d, as kiss_tpu.cli does: with one card's capacity
+    between n / d and n the text stays in core (the mesh's SA), and under
+    n / d ``-t d`` routes out of core with kiss_tpu.cli's ``routing:``
+    line (one card's capacity x d devices), its SA the in-core one."""
+    jfa, tfa, _, _, text = mesh_corpus
     monkeypatch.setattr(tss, "_mesh_size_for",
                         lambda num_threads, device: max(num_threads, 1))
+    argv = ["suffix_sort", "-k", "100", "-t", str(d)]
     monkeypatch.setenv("KISS_TPU_INCORE_CAP", str(len(text) * 3 // 4))
     with Kept(ext, "external_k_ordered_suffix_array") as kept:
         lines = _lines(tcli.main, "kiss_tpu_torch",
-                       ["suffix_sort", "-k", "100", "-t", "2", "--device",
-                        "cpu", tfa], caplog)
+                       argv + ["--device", "cpu", tfa], caplog)
+    assert kept.values == [] and not lines[0].startswith("routing: ")
+    cap = len(text) // d - 1
+    monkeypatch.setenv("KISS_TPU_INCORE_CAP", str(cap))
+    want = _lines(jcli.main, "kiss_tpu", argv + [jfa], caplog)
+    with Kept(ext, "external_k_ordered_suffix_array") as kept:
+        lines = _lines(tcli.main, "kiss_tpu_torch",
+                       argv + ["--device", "cpu", tfa], caplog)
+    assert lines == want
     assert lines[0].startswith(
         f"routing: n = {len(text)} exceeds the in-core device budget "
-        f"({len(text) * 3 // 4} chars x 2 device(s))")
+        f"({cap} chars x {d} device(s))")
     np.testing.assert_array_equal(
         kept.values[0], tss.k_ordered_suffix_array(text, 100, device="cpu"))

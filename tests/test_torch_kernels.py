@@ -141,6 +141,31 @@ def test_mesh_sorts_on_one_card(cuda):
         assert torch.equal(got_k, want_k), algo
 
 
+def test_blocked_pipeline_on_one_card(cuda):
+    """The suffix sort and the build in per-shard blocks, four shards on
+    one card: the SA blocks, cut to n + 1, equal the single-device SA
+    (every local sort K1), and the host tables the single-device
+    build's."""
+    from kiss_tpu_torch.parallel import fm_build, make_mesh
+    from kiss_tpu_torch.parallel.sharded_plan import sharded_sa_blocks
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(300_000, unit=900, seed=8)
+    mesh = make_mesh(devices=[cuda] * 4)
+    for k in (256, -1):
+        blocks = sharded_sa_blocks(mesh, text, k)
+        assert all(b.device.type == "cuda" for b in blocks)
+        np.testing.assert_array_equal(
+            mesh.to_host(blocks)[: len(text) + 1],
+            k_ordered_suffix_array(text, k, device=cuda))
+    tables = fm_build.build_index_blocks(mesh, text, blocks, 4)
+    got = fm_build.tables_to_host(
+        mesh, tables, fm_build.sharded_lookup(mesh, tables, 0), 4)
+    want = fm.FMIndex(sa_intv=4, device=cuda).build(text).arrays
+    for name in fm.FMArrays._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name).cpu()), name
+
+
 def test_radix_sort_words_stable_payload(cuda):
     """Many equal keys: the payload must come out in input order within
     each tie (the tail refinement's contract)."""

@@ -1,9 +1,10 @@
 """Two processes, two CPU shards each, form one 4-shard mesh over
 ``torch.distributed`` (gloo): the process-group backend of every
-collective (all-to-all, ppermute, psum, all-gather) must give what one
-process gives alone -- the mesh SA by columnsort, bitonic and sample
-sort, the sharded build's tables, and the row-sharded query stats. The
-counterpart of ``tests/test_multiprocess.py``."""
+collective (all-to-all, ppermute, psum, all-gather, broadcast) must give
+what one process gives alone -- the mesh SA by columnsort, bitonic and
+sample sort, the blocked pipeline's SA blocks (each process holding only
+its own two), the sharded build's tables, and the row-sharded query
+stats. The counterpart of ``tests/test_multiprocess.py``."""
 
 import multiprocessing
 import socket
@@ -28,7 +29,13 @@ def _worker(rank: int, port: int, results) -> None:
         torch.set_num_threads(1)
         from kiss_tpu_torch.models import fm_index as fm
         from kiss_tpu_torch.ops.suffix_sort import k_ordered_suffix_array
-        from kiss_tpu_torch.parallel import distributed, dsort, fm_build
+        from kiss_tpu_torch.parallel import (
+            distributed,
+            dsort,
+            fm_build,
+            sharded_plan,
+        )
+        from kiss_tpu_torch.parallel.mesh import block_rows
         from kiss_tpu_torch.parallel.fm_sharded import ShardedFMQuery
 
         distributed.initialize(f"tcp://localhost:{port}", world_size=WORLD,
@@ -44,6 +51,28 @@ def _worker(rank: int, port: int, results) -> None:
                 mesh, text, k, algorithm=algorithm)
             want = k_ordered_suffix_array(text, k, device="cpu")
             np.testing.assert_array_equal(got.numpy(), want)
+        # the blocked pipeline: this process holds shards 2r and 2r + 1,
+        # one block of B rows each, and the SA gathers on the host
+        want = k_ordered_suffix_array(text, -1, device="cpu")
+        B = block_rows(len(text) + 1, 4)
+        blocks = sharded_plan.sharded_sa_blocks(mesh, text, -1)
+        assert mesh.local == [2 * rank, 2 * rank + 1]
+        assert [tuple(b.shape) for b in blocks] == [(B,), (B,)]
+        full = np.arange(4 * B)  # pad rows hold their row ids
+        full[: len(want)] = want
+        for s, b in zip(mesh.local, blocks):
+            np.testing.assert_array_equal(b.numpy(),
+                                          full[s * B : (s + 1) * B])
+        np.testing.assert_array_equal(
+            mesh.to_host(blocks)[: len(want)], want)
+        tables = fm_build.build_index_blocks(mesh, text, blocks, 4)
+        assert all(len(t) == 2 for t in tables[:8])
+        host = fm_build.tables_to_host(
+            mesh, tables, fm_build.sharded_lookup(mesh, tables, 3), 4)
+        single = fm.FMIndex(sa_intv=4, lookup_len=3, device="cpu").build(text)
+        for name in fm.FMArrays._fields:
+            assert torch.equal(getattr(host, name),
+                               getattr(single.arrays, name)), name
         sa = k_ordered_suffix_array(text, -1, as_numpy=False, device="cpu")
         got = fm_build.trim_canonical(
             fm_build.build_index_sharded(mesh, text, sa, 4), len(text) + 1, 4)
