@@ -15,7 +15,10 @@ exits non-zero and prints no result line):
   3. each kernel against its plain PyTorch version on the card, exact
      (tolerance 0: every output is an integer), on edge cases at
      N = 2**22 + 7: W = 1, all-equal keys, a stable payload, lookup seeds;
-     K1 also at N = 0, 1 and one key either side of one and two tiles;
+     K1 also at N = 0, 1 and one key either side of one and two tiles; K4
+     (the range BFS) on a ``-k 32`` index of the same text, on a query
+     batch, the one-symbol ranges, a quarter of the SA, the whole table and
+     empty ranges;
   4. the golden outputs of the reference binary (tests/golden/*.npz)
      reproduced on the card, and the ``.fmi`` archives the reference
      binary wrote loaded and queried through the range BFS;
@@ -33,8 +36,15 @@ exits non-zero and prints no result line):
   7. the range-BFS locate path at full width: ``fmindex_build -k 32``
      through the CLI (its ``.meta`` says ``full_sa: false``), then
      ``fmindex_query -b`` and ``-q`` on it, and ``-b`` on the full-sort
-     archive with its ``.meta`` removed: occurrences and checksum equal
-     the oracle's, positions equal the full index's per-row walk;
+     archive with its ``.meta`` removed, each step with the launch
+     counters reset just before and read just after: occurrences and
+     checksum equal the oracle's, positions equal the full index's per-row
+     walk, K4 launched (stats once a chunk of ``-b``, locate once for
+     ``-q``) and K3 never; ``ShardedFMQuery.batch_query_stats`` (the ``-t
+     N`` route, four shards on this card) through K4 with the oracle's
+     answer; K4's two entry points held against their plain versions
+     (positions element for element) and timed at a CLI chunk and the 1M
+     batch (``experiments.fm_query_time.measure_bfs``);
   7a. the out-of-core sorter at full width: ``suffix_sort --external -k
      256`` through the CLI (launch counters reset just before and read
      just after), and the library call at k = 100 and k = -1 with
@@ -47,10 +57,11 @@ exits non-zero and prints no result line):
      out of core, and ``-s LMS_INDUCED -k -1 -t 8`` on a random
      2**22 + 6-character text, whose SA (``LmsSorter``) equals the
      in-core one;
-  7c. ``serve`` on the full-sort archive with an injected stdin (the
-     ``-q`` pattern, the batch, a missing batch file, ``quit``):
-     ``ready``, ``ok``, ``ok``, ``err ...``, and the batch's occurrences
-     and checksum equal the oracle's;
+  7c. ``serve`` on the full-sort archive and on the ``-k 32`` one (the
+     range BFS: K4 launched, K3 not) with an injected stdin (the ``-q``
+     pattern, the batch, a missing batch file, ``quit``): ``ready``,
+     ``ok``, ``ok``, ``err ...``, and the batch's occurrences and checksum
+     equal the oracle's;
   7d. the general alphabet: ``get_suffix_array`` of DNA text equals
      ``get_suffix_array_dna``'s SA (launch counters reset just before and
      read just after); a 20-symbol text at 2**20 + 6 characters, k = 256
@@ -58,7 +69,7 @@ exits non-zero and prints no result line):
      general sort held against the plain version;
   7e. the range BFS at N % 64 == 0: ``fmindex_build -k 32`` at n =
      2**22 - 1, then ``-b`` (the oracle's occurrences and checksum) and
-     ``-q T`` (a range that ends at row N);
+     ``-q T`` (a range that ends at row N), both through K4;
   7f. the mesh of ``kiss_tpu_torch.parallel`` at full width, its shards
      on this one card (``make_mesh(devices=[cuda:0] * D)``), each step
      with the launch counters reset just before and read just after, its
@@ -95,9 +106,10 @@ exits non-zero and prints no result line):
      reads and their rate, and launches x (time - bound) at the shapes the
      main path launches; the two sorts K1 and P3 split by device kernel
      (``torch.profiler``);
-     then one JSON line with each kernel's launches, error,
-     times and bound, and as the last line ``{"ok": true, "device":
-     {...}}``.
+     then one JSON line with each kernel's launches (K1-K3: the main
+     path's; K4: the BFS route's ``-b`` for stats and ``-q`` for locate,
+     every BFS route's under ``launches_by_path``), error, times and
+     bound, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports the standard library, numpy, torch and kiss_tpu_torch only:
 the synthetic genome and the patterns come from the port's own
@@ -140,8 +152,21 @@ KERNELS = {
         "kiss_tpu_torch/csrc/fm_locate.cu", "kiss_tpu/models/fm_index.py:583"
     ),
 }
-_PROBES_CU = "kiss_tpu_torch/csrc/micro_probes.cu"
+# the kernels of the main path (a full-sort archive locates by the walk)
+MAIN_NAMES = tuple(KERNELS)
+# K4, the range BFS: the route of -k N, reference-written and .meta-less
+# archives, whose launches are read on that route (phase 7)
+BFS_NAMES = ("fm_bfs_stats", "fm_bfs_locate")
 KERNELS.update({
+    "fm_bfs_stats": (
+        "kiss_tpu_torch/csrc/fm_bfs.cu", "kiss_tpu/models/fm_index.py:695"
+    ),
+    "fm_bfs_locate": (
+        "kiss_tpu_torch/csrc/fm_bfs.cu", "kiss_tpu/models/fm_index.py:690"
+    ),
+})
+_PROBES_CU = "kiss_tpu_torch/csrc/micro_probes.cu"
+PROBES = {
     "stream_copy": (_PROBES_CU, "experiments/micro_pallas.py:52"),
     "one_stage": (_PROBES_CU, "experiments/micro_pallas.py:101"),
     "tile_sort": (_PROBES_CU, "experiments/micro_pallas.py:147"),
@@ -149,8 +174,9 @@ KERNELS.update({
     "copy_grid": (_PROBES_CU, "experiments/micro_copy.py:43"),
     "copy_2d": (_PROBES_CU, "experiments/micro_copy.py:62"),
     "run_heavy": (_PROBES_CU, "experiments/micro_copy.py:103"),
-})
-PROBE_NAMES = tuple(KERNELS)[4:]
+}
+KERNELS.update(PROBES)
+PROBE_NAMES = tuple(PROBES)
 
 
 def check(cond, msg: str) -> None:
@@ -280,13 +306,39 @@ def phase_kernels(torch, np, err):
         fm.locate_rows_device(idx[0].arrays, rows, 4, blocks=idx[0].blocks),
         fm.locate_rows_device_plain(idx[0].arrays, rows, 4),
     )
+    # K4 on a 32-ordered index of the same text (the BFS route's): the
+    # batch's ranges, the one-symbol ranges (T's ends at row N), a quarter
+    # of the SA, the whole table and empty ranges
+    k32 = fm.FMIndex(sa_intv=4, device=dev).build(text, sort_len=32)
+    b, e, _ = fm.get_range_packed_device(k32.arrays, qw, 12, 0,
+                                         blocks=k32.blocks)
+    b1, e1, _ = k32._ranges(np.arange(4, dtype=np.int8)[:, None])
+
+    def pair(*ranges):
+        return tuple(torch.tensor(x, dtype=torch.int64, device=dev)
+                     for x in zip(*ranges))
+
+    bfs_cases = {
+        f"{nq} x 12": (b, e), "one symbol": (b1, e1),
+        "a quarter": pair((N // 4, N // 2)), "whole": pair((0, N)),
+        "empty": pair(*[(7, 7)] * 100),
+    }
+    for bb, ee in bfs_cases.values():
+        err["fm_bfs_locate"] = max(err["fm_bfs_locate"], exact(
+            fm.bfs_locate_device(k32.arrays, bb, ee, 4, blocks=k32.blocks),
+            fm.bfs_locate_device_plain(k32.arrays, bb, ee, 4)))
+        err["fm_bfs_stats"] = max(err["fm_bfs_stats"], exact(
+            fm.batch_bfs_stats_device(k32.arrays, bb, ee, 4,
+                                      blocks=k32.blocks),
+            fm.batch_bfs_stats_device_plain(k32.arrays, bb, ee, 4)))
     torch.cuda.synchronize()
     say(
         f"kernels vs plain, edge cases (exact, tolerance 0): K1 on "
         f"{len(cases)} key sets, 5 at N = {N} and {2 * len(small)} at N = "
         f"{', '.join(map(str, small))}; K2 on {nq} queries x qlen 25/12 x "
         f"lookup 0/8 over a {SMALL_N}-char index; K3 rows ({nq}) and "
-        "stats: all equal"
+        f"stats; K4 locate and stats on a -k 32 index of it ("
+        f"{', '.join(bfs_cases)}): all equal"
     )
 
 
@@ -516,8 +568,11 @@ def phase_routes(torch, np, cli, kernels, logs, tmp):
     return routed
 
 
-def phase_serve(cli, logs, fa, batch, tmp, q_pattern, found, occ, checksum):
-    """7c: serve on the full-sort archive with an injected stdin."""
+def phase_serve(cli, kernels, logs, fa, batch, tmp, q_pattern, found, occ,
+                checksum, archive):
+    """7c: serve on ``fa``'s archive (``archive`` names it) with an
+    injected stdin. Returns the launches of the run, the counters set to 0
+    just before it."""
     import io
 
     t_phase = time.perf_counter()
@@ -526,7 +581,9 @@ def phase_serve(cli, logs, fa, batch, tmp, q_pattern, found, occ, checksum):
     requests = f"{q_pattern}\nbatch {batch}\nbatch {missing}\nquit\n"
     out = io.StringIO()
     del logs.lines[:]
+    kernels.reset_launch_counts()
     cli.serve_main(args, io.StringIO(requests), out)
+    launches = dict(kernels.LAUNCHES)
     lines = out.getvalue().splitlines()
     check(len(lines) == 4 and lines[0] == "ready"
           and lines[1].startswith("ok ") and lines[2].startswith("ok ")
@@ -538,10 +595,11 @@ def phase_serve(cli, logs, fa, batch, tmp, q_pattern, found, occ, checksum):
           f"serve batch {got} != the oracle's {(occ, checksum)}")
     check(int(logs.value(f"query = {q_pattern} found ").split()[0]) == found,
           "serve -q found count differs from fmindex_query's")
-    say(f"serve on the full-sort archive: {lines[0]}; {lines[1]} (-q, found "
+    say(f"serve on the {archive}: {lines[0]}; {lines[1]} (-q, found "
         f"{found}); {lines[2]} (batch of {N_QUERIES}, occ {got[0]} checksum "
         f"{got[1]}, the oracle's); {lines[3][:60]}...; stopped at quit; "
-        f"phase {time.perf_counter() - t_phase:.3f} s")
+        f"launches {launches}; phase {time.perf_counter() - t_phase:.3f} s")
+    return launches
 
 
 def phase_general(torch, np, kernels, err, shapes):
@@ -588,8 +646,10 @@ def phase_general(torch, np, kernels, err, shapes):
     return launches
 
 
-def phase_bfs_edge(torch, np, cli, logs, tmp):
-    """7e: the range BFS at N % 64 == 0 on the card."""
+def phase_bfs_edge(torch, np, cli, kernels, logs, tmp):
+    """7e: the range BFS at N % 64 == 0 on the card, through K4. Returns
+    the launches of its ``-b`` and ``-q`` runs, the counters set to 0 just
+    before them."""
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.utils import codec, fasta
     from kiss_tpu_torch.utils.synth import sample_patterns, synth_genome
@@ -609,6 +669,7 @@ def phase_bfs_edge(torch, np, cli, logs, tmp):
     check(cli.main(["fmindex_build", "-k", "32", fa]) == 0, "edge build")
     meta = fm.read_meta(fa + ".fmi")
     check(meta is not None and meta.get("full_sa") is False, "edge .meta")
+    kernels.reset_launch_counts()
     check(cli.main(["fmindex_query", "-b", batch, fa]) == 0, "edge -b")
     got = (int(logs.value("number of matched locations: ")),
            int(logs.value("location checksum: ")))
@@ -618,12 +679,18 @@ def phase_bfs_edge(torch, np, cli, logs, tmp):
     check(cli.main(["fmindex_query", "-q", "T", "-n", "0", fa]) == 0,
           "edge -q T")
     t_found = int(logs.value("query = T found ").split()[0])
+    launches = dict(kernels.LAUNCHES)
     t_count = int((text_dev == 3).sum())
     check(t_found == t_count, f"-q T found {t_found} != {t_count}")
+    check(launches["fm_bfs_stats"] > 0 and launches["fm_bfs_locate"] > 0
+          and launches["fm_locate_stats"] == 0
+          and launches["fm_locate_rows"] == 0,
+          f"the BFS at N % 64 == 0 did not go through K4: {launches}")
     say(f"range BFS at n={n} (N % 64 == 0), fmindex_build -k 32: -b of {nq} "
         f"x {QLEN} gives occ {got[0]} checksum {got[1]} (the oracle's); -q T "
-        f"(its range ends at row N) found {t_found}, the count of T; phase "
-        f"{time.perf_counter() - t_phase:.3f} s")
+        f"(its range ends at row N) found {t_found}, the count of T; "
+        f"launches {launches}; phase {time.perf_counter() - t_phase:.3f} s")
+    return launches
 
 
 def phase_mesh(torch, np, kernels, fa, text, text_dev, pats, qw, single, occ,
@@ -1119,8 +1186,7 @@ def main() -> int:
     ):
         rc, steps[name] = wall_s(lambda argv=argv: cli.main(argv))
         check(rc == 0, f"{name} returned {rc}")
-    launches = {name: kernels.LAUNCHES[name] for name in KERNELS
-                if name not in PROBE_NAMES}
+    launches = {name: kernels.LAUNCHES[name] for name in MAIN_NAMES}
     peak_bytes = torch.cuda.max_memory_allocated()
     logging.getLogger().removeHandler(logs)
     check(all(v > 0 for v in launches.values()),
@@ -1244,16 +1310,20 @@ def main() -> int:
     bfs_pattern = codec.to_string(pats[qi])
     logging.getLogger().addHandler(logs)
 
+    # each step's launches, the counters set to 0 just before it
+    bfs_steps = {}
+
     def run_cli(name, argv):
         del logs.lines[:]
+        kernels.reset_launch_counts()
         rc, steps[name] = wall_s(lambda: cli.main(argv))
+        bfs_steps[name] = dict(kernels.LAUNCHES)
         check(rc == 0, f"{name} returned {rc}")
 
     def batch_stats():
         return (int(logs.value("number of matched locations: ")),
                 int(logs.value("location checksum: ")))
 
-    kernels.reset_launch_counts()
     run_cli("fmindex_build -k 32", ["fmindex_build", "-k", "32", fa32])
     meta32 = fm.read_meta(fa32 + ".fmi")
     check(meta32 is not None and meta32.get("full_sa") is False
@@ -1264,6 +1334,7 @@ def main() -> int:
     check(batch_stats() == (occ, checksum),
           f"BFS -b on the -k 32 archive: {batch_stats()} != the oracle's "
           f"{(occ, checksum)}")
+    bfs_search_s = float(logs.value("searching time: ").split()[0])
     run_cli("fmindex_query -q (BFS, -k 32)",
             ["fmindex_query", "-q", bfs_pattern, "-n", "200", fa32])
     found32 = int(logs.value(f"query = {bfs_pattern} found ").split()[0])
@@ -1277,7 +1348,8 @@ def main() -> int:
     check(batch_stats() == (occ, checksum),
           f"BFS -b on the full-sort archive without .meta: {batch_stats()} "
           f"!= {(occ, checksum)}")
-    bfs_launches = dict(kernels.LAUNCHES)
+    bfs_launches = {name: sum(step[name] for step in bfs_steps.values())
+                    for name in kernels.LAUNCHES}
     logging.getLogger().removeHandler(logs)
     walk_rows = torch.arange(int(beg[qi]), int(end[qi]), device=dev)
     walked = sorted(
@@ -1287,9 +1359,22 @@ def main() -> int:
           "BFS -q positions differ from the full index's per-row walk")
     check(bfs_launches["radix_sort_words"] > 0
           and bfs_launches["fm_backward_search"] > 0
+          and all(bfs_launches[name] > 0 for name in BFS_NAMES)
           and bfs_launches["fm_locate_stats"] == 0
           and bfs_launches["fm_locate_rows"] == 0,
-          f"the BFS path's launches are not K1 + K2 only: {bfs_launches}")
+          f"the BFS path's launches are not K1, K2 and K4: {bfs_launches}")
+    # K4 on its route: stats once a CLI chunk of -b, locate once for -q
+    b_step = bfs_steps["fmindex_query -b (BFS, -k 32)"]
+    q_step = bfs_steps["fmindex_query -q (BFS, -k 32)"]
+    check(b_step["fm_bfs_stats"] == -(-N_QUERIES // CLI_CHUNK)
+          and b_step["fm_bfs_locate"] == 0 and q_step["fm_bfs_stats"] == 0
+          and q_step["fm_bfs_locate"] == 1,
+          f"K4 launches: -b {b_step}, -q {q_step}")
+    launches["fm_bfs_stats"] = b_step["fm_bfs_stats"]
+    launches["fm_bfs_locate"] = q_step["fm_bfs_locate"]
+    bfs_by_path = {name: {step: counts[name] for step, counts
+                          in bfs_steps.items() if counts[name]}
+                   for name in BFS_NAMES}
 
     # the library's batch_query on both indexes: per query, the same
     # positions (the BFS orders them by depth, the walk by row)
@@ -1308,21 +1393,44 @@ def main() -> int:
     b32, e32, _ = fm.get_range_packed_device(fmi32.arrays, qw, QLEN,
                                              fmi32.lookup_len,
                                              blocks=fmi32.blocks)
-    check(fm.batch_bfs_stats_device(fmi32.arrays, b32, e32, 4)
-          == (occ, checksum), "BFS stats of the whole batch")
-    bfs_ms = cuda_ms(
-        lambda: fm.batch_bfs_stats_device(fmi32.arrays, b32, e32, 4), 3
-    )
-    bfs_chunk_ms = cuda_ms(
-        lambda: fm.batch_bfs_stats_device(
-            fmi32.arrays, b32[:CLI_CHUNK], e32[:CLI_CHUNK], 4), 3
-    )
+    check(fm.batch_bfs_stats_device(fmi32.arrays, b32, e32, 4,
+                                    blocks=fmi32.blocks) == (occ, checksum),
+          "BFS stats of the whole batch")
+    # the -t N route: ShardedFMQuery's BFS stats on four shards of this
+    # card take K4 on the lead card's tables
+    from kiss_tpu_torch.parallel import make_mesh
+    from kiss_tpu_torch.parallel.fm_sharded import ShardedFMQuery
+
+    sharded = ShardedFMQuery(make_mesh(devices=[dev] * 4), fmi32)
+    kernels.reset_launch_counts()
+    mesh_bfs = sharded.batch_query_stats(pats)
+    mesh_pos = sorted(sharded.get_offsets(
+        *sharded.get_range(pats[qi])[:2]).tolist())
+    mesh_launches = dict(kernels.LAUNCHES)
+    check(mesh_bfs == (occ, checksum) and mesh_pos == walked
+          and all(mesh_launches[name] == 1 for name in BFS_NAMES)
+          and mesh_launches["fm_locate_stats"] == 0
+          and mesh_launches["fm_locate_rows"] == 0,
+          f"ShardedFMQuery BFS stats {mesh_bfs} (the oracle's: "
+          f"{(occ, checksum)}), -q positions equal the walk's: "
+          f"{mesh_pos == walked}, launches {mesh_launches}")
+    del sharded
+    for name in BFS_NAMES:
+        bfs_by_path[name]["ShardedFMQuery D=4 (shards on one card)"] = (
+            mesh_launches[name])
+    # K4 alone at the CLI chunk and the 1M batch, each output held to the
+    # plain version (positions element for element), and the plain times
+    bfs_split = fm_query_time.measure_bfs(fmi32, b32, e32, CLI_CHUNK, smi,
+                                          say=say)
     say(f"BFS path n={N_TEXT}: fmindex_build -k 32 wrote .meta full_sa "
         f"false; -b on it and on the full-sort archive without .meta give "
-        f"occ {occ} and checksum {checksum} (the oracle's); -q "
+        f"occ {occ} and checksum {checksum} (the oracle's), searching time "
+        f"{bfs_search_s:.3f} s (the walk's {search_s:.3f}); -q "
         f"{bfs_pattern} found {found32}, positions equal the per-row walk; "
         f"batch_query of {CLI_CHUNK} patterns ({int(lf.sum())} positions) "
-        f"equal per query; launches {bfs_launches}")
+        f"equal per query; ShardedFMQuery D=4 BFS stats the oracle's and "
+        f"its -q positions the walk's; "
+        f"launches by step {bfs_steps}")
     del fmi32, b32, e32
 
     # ---- 7a-7e. the out-of-core sorter, the other sort routes, serve, the
@@ -1333,9 +1441,20 @@ def main() -> int:
         torch, np, cli, kernels, fa, text, text_dev, err, k1_shapes
     )
     routed_launches = phase_routes(torch, np, cli, kernels, logs, tmp)
-    phase_serve(cli, logs, fa, batch, tmp, q_pattern, found, occ, checksum)
+    phase_serve(cli, kernels, logs, fa, batch, tmp, q_pattern, found, occ,
+                checksum, "full-sort archive")
+    served = phase_serve(cli, kernels, logs, fa32, batch, tmp, q_pattern,
+                         found, occ, checksum, "-k 32 archive (range BFS)")
+    check(all(served[name] > 0 for name in BFS_NAMES)
+          and served["fm_locate_stats"] == 0
+          and served["fm_locate_rows"] == 0,
+          f"serve on the -k 32 archive did not go through K4: {served}")
+    for name in BFS_NAMES:
+        bfs_by_path[name]["serve (-k 32 archive)"] = served[name]
     general_launches = phase_general(torch, np, kernels, err, k1_shapes)
-    phase_bfs_edge(torch, np, cli, logs, tmp)
+    edge = phase_bfs_edge(torch, np, cli, kernels, logs, tmp)
+    for name in BFS_NAMES:
+        bfs_by_path[name]["7e: -b and -q at N % 64 == 0"] = edge[name]
     logging.getLogger().removeHandler(logs)
     check(fmi.full_sa, "the full-sort index must take the per-row walk")
     k1_rows = phase_k1_shapes(torch, smi, err, k1_shapes)
@@ -1446,8 +1565,12 @@ def main() -> int:
         f"{smi}: " + "; ".join(
             f"{name} {n} x ({t:.4f} - {b:.4f}) = {n * (t - b):.4f} ms"
             for name, (n, t, b) in over.items()))
+    for name in BFS_NAMES:
+        ms[name] = bfs_split[(name, batch)]["ms"]
+        plain_ms[name] = bfs_split[(name, batch)]["plain_ms"]
+        bounds[name] = bfs_split[(name, batch)]["bound"]
     for name in bounds:
-        library_ms.setdefault(name, None)  # K1-K3: no one PyTorch call
+        library_ms.setdefault(name, None)  # K1-K4: no one PyTorch call
     times["query counts (1M x 25, K2)"] = (
         ms["fm_backward_search"] / 1e3, plain_ms["fm_backward_search"] / 1e3
     )
@@ -1459,9 +1582,14 @@ def main() -> int:
         + f", searching time {search_s:.3f}; library sort k=256 "
         f"{sort_s:.3f}; kernel path vs plain: "
         + ", ".join(f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in times.items())
-        + f"; range BFS stats (plain PyTorch ops) of the 1M ranges "
-        f"{bfs_ms / 1e3:.4f} and of one {CLI_CHUNK}-query chunk "
-        f"{bfs_chunk_ms / 1e3:.4f}, beside K3 stats")
+        + f"; range BFS: -b searching time {bfs_search_s:.3f} (the walk's "
+        f"{search_s:.3f}), K4 stats of the 1M ranges "
+        f"{bfs_split[('fm_bfs_stats', batch)]['ms'] / 1e3:.6f} (plain "
+        f"{bfs_split[('fm_bfs_stats', batch)]['plain_ms'] / 1e3:.4f}) and of "
+        f"one {CLI_CHUNK}-query chunk "
+        f"{bfs_split[('fm_bfs_stats', chunk)]['ms'] / 1e3:.6f} (plain "
+        f"{bfs_split[('fm_bfs_stats', chunk)]['plain_ms'] / 1e3:.4f}), "
+        f"beside K3 stats")
 
     # ---- the two sorts split by device kernel. Last of all: once the
     # profiler has run, every launch of the process costs the host more,
@@ -1490,6 +1618,18 @@ def main() -> int:
         split_line(f"P3 tile_sort T={r * mk.LANES // 1024}K N={N_PROBE}",
                    lambda: mk.tile_sort(pk, pv, r))
     del pk, pv
+    # K4's two entry points on the 1M ranges of the -k 32 archive
+    fmi32 = fm.FMIndex(sa_intv=4, device=dev)
+    with open(fa32 + ".fmi", "rb") as f:
+        fmi32.load(f)
+    b32, e32, _ = fm.get_range_packed_device(fmi32.arrays, qw, QLEN, 0,
+                                             blocks=fmi32.blocks)
+    for label, fn in (("stats", fm.batch_bfs_stats_device),
+                      ("locate", fm.bfs_locate_device)):
+        split_line(f"K4 {label}, the {N_QUERIES} ranges of the batch",
+                   lambda fn=fn: fn(fmi32.arrays, b32, e32, 4,
+                                    blocks=fmi32.blocks))
+    del fmi32, b32, e32
 
     tmpdir.cleanup()
     check(sys.modules.get("jax") is None, "jax was imported")
@@ -1502,7 +1642,8 @@ def main() -> int:
         for name, (src, rep) in KERNELS.items()
     ]}
     # K1's launches on the paths of this slice, and its times at their shapes
-    report["kernels"][0].update({
+    by_name = {k["name"]: k for k in report["kernels"]}
+    by_name["radix_sort_words"].update({
         "launches_by_path": {
             "main path": launches["radix_sort_words"],
             "suffix_sort --external -k 256": ext_launches,
@@ -1517,7 +1658,7 @@ def main() -> int:
         "external_split_s": ext_splits,
     })
     # K2's launches on the mesh path, and its time at the shard's shape
-    report["kernels"][1].update({
+    by_name["fm_backward_search"].update({
         "launches_by_path": {
             "main path": launches["fm_backward_search"],
             **{name: k2 for name, (_, _, k2, _, _) in mesh_steps.items()
@@ -1527,6 +1668,17 @@ def main() -> int:
                           "bound_by": by}
                    for name, (t, p, b, by) in k2_rows.items()},
     })
+    # K4's launches on each BFS route, and its times at the CLI chunk and the
+    # whole batch
+    for name in BFS_NAMES:
+        by_name[name].update({
+            "launches_by_path": bfs_by_path[name],
+            "shapes": {shape: {key: v[key] for key in ("ms", "plain_ms",
+                                                       "wrapper_ms")}
+                       | {"bound_ms": v["bound"][0],
+                          "bound_by": v["bound"][1]}
+                       for (k, shape), v in bfs_split.items() if k == name},
+        })
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

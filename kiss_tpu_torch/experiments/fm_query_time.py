@@ -1,6 +1,8 @@
 """K2 ``fm_backward_search`` and K3 ``fm_locate_stats`` / ``fm_locate_rows``
 timed alone at the shapes the main path launches them, beside the 32-byte
-sectors each table layout must read for this run's inputs.
+sectors each table layout must read for this run's inputs; and K4
+``fm_bfs_stats`` / ``fm_bfs_locate`` (the range BFS) at the same query
+shapes over a 32-ordered index of the same text, the BFS route's.
 
 Shapes, over the index of the 48,800,648-character synthetic genome
 (``utils.synth``): one CLI chunk of ``fmindex_query -b`` (100,000 patterns
@@ -34,6 +36,7 @@ import argparse
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -88,6 +91,57 @@ def k3_bound(fmi, io_bytes: int, walk: int, rows: int):
         io_bytes + samp
         + index_bytes(fmi.arrays, fmi.blocks, walk, walk + rows),
         walk * 16 + rows * 8,
+    )
+
+
+class BfsWork(NamedTuple):
+    """What K4's pruned walk of a batch's trees visits and emits."""
+
+    nodes: int  # non-empty nodes
+    entries: int  # block-table entries they read: one a row, else two
+    lfs: int  # LF steps: one for a row's child (none at the sentinel
+    # row), four for each endpoint of a wider node above the last depth
+    segments: int  # non-empty segments
+    positions: int
+
+
+def bfs_work(arrays, beg: torch.Tensor, end: torch.Tensor,
+             sa_intv: int) -> BfsWork:
+    """K4's work on the range BFS of [beg, end), counted with the plain
+    version's level-by-level expansion (an empty node's descendants are
+    empty, and K4 visits the rest)."""
+    bs, es = beg[:, None], end[:, None]
+    nodes = entries = lfs = segments = positions = 0
+    for d in range(sa_intv):
+        live = (bs < es).to(torch.int64)
+        one = (es - bs == 1).to(torch.int64)
+        mb, me = fm._b_rank(arrays, bs), fm._b_rank(arrays, es)
+        nodes += int(live.sum())
+        entries += int((2 * live - one).sum())
+        if d + 1 < sa_intv:
+            lfs += int((8 * (live - one) + one * (bs != arrays.pri)).sum())
+            bs = fm._lf_all4(arrays, bs).reshape(bs.shape[0], -1)
+            es = fm._lf_all4(arrays, es).reshape(es.shape[0], -1)
+        segments += int((me > mb).sum())
+        positions += int((me - mb).sum())
+    return BfsWork(nodes, entries, lfs, segments, positions)
+
+
+def k4_bound(fmi, nq: int, work: BfsWork, stats: bool):
+    """K4: the ranges in (16 bytes a query); the block-table entries its
+    walk reads (32 bytes each, capped at the table); the samples: 8 bytes
+    of sa_samp a position, or for the stats, where fewer, two 8-byte
+    samp_sum values a non-empty segment; the output (the positions, or the
+    two integers). Operations: about 16 a mark rank (one an entry) and 16
+    an LF."""
+    samp = 8 * work.positions
+    if stats:
+        samp = min(samp, 16 * work.segments)
+    out = 16 if stats else 8 * work.positions
+    return bound_ms(
+        16 * nq + min(fmi.blocks.blk.numel() * 4, 32 * work.entries) + samp
+        + out,
+        16 * (work.entries + work.lfs),
     )
 
 
@@ -356,6 +410,110 @@ def measure(fmi, qw: torch.Tensor, q_rows: torch.Tensor,
     return out
 
 
+def _bfs_entry_points(fmi, dev):
+    """Launchers of K4 on prepared inputs: ``stats(beg, end)`` and
+    ``locate(beg, end)`` each return (launch, result) as
+    :func:`_entry_points`'s. The locate launch runs the count pass, the
+    prefix sum and the locate passes into buffers sized by one earlier
+    call: the wrapper's read of the output's size is not in the window.
+    On the CPU they call the wrappers (the plain versions)."""
+    a, blocks = fmi.arrays, fmi.blocks
+    if dev.type != "cuda":
+        def wrapped(fn, beg, end):
+            last = [None]
+
+            def launch():
+                last[0] = fn(a, beg, end, SA_INTV, blocks=blocks)
+
+            return launch, lambda: last[0]
+
+        return (lambda beg, end: wrapped(fm.batch_bfs_stats_device, beg, end),
+                lambda beg, end: wrapped(fm.bfs_locate_device, beg, end))
+    lib = kernels.library()
+    stream = kernels.stream_of(dev)
+    tabs = (blocks.blk.data_ptr(), blocks.sup.data_ptr(), a.pri.data_ptr())
+
+    def stats(beg, end):
+        out = torch.empty(2, dtype=torch.int64, device=dev)
+        args = (*tabs, blocks.samp_sum.data_ptr(), SA_INTV, beg.data_ptr(),
+                end.data_ptr(), beg.shape[0], out.data_ptr(), stream)
+
+        def launch():
+            kernels.check(lib.kt_fm_bfs_stats(*args), "kt_fm_bfs_stats")
+
+        return launch, lambda: tuple(out.tolist())
+
+    def locate(beg, end):
+        q = beg.shape[0]
+        counts = torch.empty((2, q * SA_INTV), dtype=torch.int64, device=dev)
+        incl = torch.empty_like(counts)
+        count_args = (*tabs, SA_INTV, beg.data_ptr(), end.data_ptr(), q,
+                      counts.data_ptr(), stream)
+        def scan():
+            for row in range(2):
+                torch.cumsum(counts[row], dim=0, out=incl[row])
+
+        kernels.check(lib.kt_fm_bfs_count(*count_args), "kt_fm_bfs_count")
+        scan()
+        nseg, total = incl[:, -1].tolist()
+        seg = torch.empty((2, nseg), dtype=torch.int64, device=dev)
+        out = torch.empty(total, dtype=torch.int64, device=dev)
+        args = (*tabs, a.sa_samp.data_ptr(), SA_INTV, beg.data_ptr(),
+                end.data_ptr(), q, counts.data_ptr(), incl.data_ptr(), nseg,
+                total, seg[0].data_ptr(), seg[1].data_ptr(), out.data_ptr(),
+                stream)
+
+        def launch():
+            kernels.check(lib.kt_fm_bfs_count(*count_args),
+                          "kt_fm_bfs_count")
+            scan()
+            kernels.check(lib.kt_fm_bfs_locate(*args), "kt_fm_bfs_locate")
+
+        return launch, lambda: out
+
+    return stats, locate
+
+
+def measure_bfs(fmi, beg: torch.Tensor, end: torch.Tensor, chunk: int,
+                smi: str, say=print, reps: int = REPS):
+    """Time K4's stats and locate entry points at a CLI chunk of the ranges
+    and at all of them, on prepared inputs (CUDA events), and as the CLI
+    calls them (the wrappers, download included, host clock); hold each
+    output to the plain version's (exact) and time the plain versions too.
+    Prints one line a kernel and shape; returns {(kernel, shape): dict}."""
+    dev = beg.device
+    a = fmi.arrays
+    stats, locate = _bfs_entry_points(fmi, dev)
+    out = {}
+    for shape, (b, e) in ((f"chunk {chunk}", (beg[:chunk], end[:chunk])),
+                          (f"batch {beg.shape[0]}", (beg, end))):
+        work = bfs_work(a, b, e, SA_INTV)
+        for name, entry, plain, wrapper, is_stats in (
+                ("fm_bfs_stats", stats, fm.batch_bfs_stats_device_plain,
+                 fm.batch_bfs_stats_device, True),
+                ("fm_bfs_locate", locate, fm.bfs_locate_device_plain,
+                 fm.bfs_locate_device, False)):
+            launch, result = entry(b, e)
+            ms = time_ms(launch, reps, dev)
+            want = plain(a, b, e, SA_INTV)
+            _exact(result(), want, f"K4 {name} {shape}")
+            plain_ms = time_ms(lambda: plain(a, b, e, SA_INTV), 3, dev)
+            wrapped = host_ms(lambda: wrapper(a, b, e, SA_INTV,
+                                              blocks=fmi.blocks), reps)
+            bound = k4_bound(fmi, b.shape[0], work, is_stats)
+            out[(name, shape)] = dict(ms=ms, plain_ms=plain_ms,
+                                      wrapper_ms=wrapped, bound=bound,
+                                      work=work)
+            say(f"K4 {name} {shape} ranges on {smi}: kernel alone {ms:.4f} "
+                f"ms over {reps} launches, as the CLI calls it (host clock, "
+                f"download included) {wrapped:.4f} ms, plain version "
+                f"{plain_ms:.4f} ms; {work.nodes} non-empty nodes, "
+                f"{work.entries} entries read, {work.lfs} LF steps, "
+                f"{work.segments} non-empty segments, {work.positions} "
+                f"positions; bound {bound[0]:.4f} ms ({bound[1]})")
+    return out
+
+
 def query_inputs(fmi, text, nq: int, dev):
     """(packed patterns, rows of the first pattern's range, nq random
     rows) as the main path and chip_smoke.py make them."""
@@ -393,6 +551,13 @@ def main(argv=None) -> int:
     qw, q_rows, rand_rows = query_inputs(fmi, text, args.queries, dev)
     measure(fmi, qw, q_rows, rand_rows, args.chunk, smi,
             say=lambda m: print(m, flush=True), reps=args.reps)
+    # K4 on a 32-ordered index of the same text, the BFS route's archives
+    bfs = fm.FMIndex(sa_intv=SA_INTV, lookup_len=0, device=dev).build(
+        text, sort_len=32)
+    beg, end, _ = fm.get_range_packed_device(bfs.arrays, qw, QLEN, 0,
+                                             blocks=bfs.blocks)
+    measure_bfs(bfs, beg, end, args.chunk, smi,
+                say=lambda m: print(m, flush=True), reps=args.reps)
     return 0
 
 

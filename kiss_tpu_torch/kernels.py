@@ -1,8 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The kernel sources (``csrc/radix_sort.cu``, ``csrc/fm_search.cu``,
-``csrc/fm_locate.cu``, ``csrc/micro_probes.cu``) have a plain C
-interface. They are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc``
+``csrc/fm_locate.cu``, ``csrc/fm_bfs.cu``, ``csrc/micro_probes.cu``) have
+a plain C interface. They are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc``
 process per source and all started together, and linked into one shared
 library under ``kiss_tpu_torch/build/`` at first use, which is loaded
 with ``ctypes``.
@@ -32,7 +32,7 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("radix_sort.cu", "fm_search.cu", "fm_locate.cu",
+SOURCES = ("radix_sort.cu", "fm_search.cu", "fm_locate.cu", "fm_bfs.cu",
            "micro_probes.cu")
 HEADERS = ("fm_common.cuh",)
 NVCC_FLAGS = (
@@ -45,6 +45,8 @@ LAUNCHES = {
     "fm_backward_search": 0,
     "fm_locate_rows": 0,
     "fm_locate_stats": 0,
+    "fm_bfs_stats": 0,
+    "fm_bfs_locate": 0,
     "stream_copy": 0,
     "one_stage": 0,
     "tile_sort": 0,
@@ -143,6 +145,11 @@ _SIGNATURES = {
     ],
     "kt_fm_locate_rows": [_P, _P, _P, _P, _I, _P, _L, _P, _P],
     "kt_fm_locate_stats": [_P, _P, _P, _P, _I, _P, _P, _L, _P, _P],
+    "kt_fm_bfs_stats": [_P, _P, _P, _P, _I, _P, _P, _L, _P, _P],
+    "kt_fm_bfs_count": [_P, _P, _P, _I, _P, _P, _L, _P, _P],
+    "kt_fm_bfs_locate": [
+        _P, _P, _P, _P, _I, _P, _P, _L, _P, _P, _L, _L, _P, _P, _P, _P,
+    ],
     "kt_probe_stream_copy": [_P, _P, _L, _L, _P],
     "kt_probe_copy_grid": [_P, _P, _L, _L, _P],
     "kt_probe_heavy": [_P, _P, _L, _L, _U, _U, _P],

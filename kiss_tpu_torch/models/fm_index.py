@@ -28,10 +28,11 @@ content in int32. Files keep the reference's ``<u4`` layout.
 The per-row walk is exact only when the index was built from a FULLY
 sorted SA; other indexes (bounded ``-k`` builds, archives loaded without
 a ``full_sa`` sidecar, archives written by the reference binary, which
-are 32-ordered) locate through the range BFS (``_bfs_emit``), which
+are 32-ordered) locate through the range BFS (kernel K4,
+``csrc/fm_bfs.cu``; plain version ``bfs_locate_device_plain``), which
 applies LF to range endpoints only and is exact on any k-ordered source
-SA with k >= sa_intv - 1 + pattern length. The BFS is plain PyTorch ops
-(in the JAX package it is jitted XLA, not a hand-written kernel).
+SA with k >= sa_intv - 1 + pattern length. (In the JAX package the BFS is
+jitted XLA, not a hand-written kernel.)
 """
 
 from __future__ import annotations
@@ -108,10 +109,16 @@ class FMBlocks(NamedTuple):
     ``sup`` int64 [N//65536 + 1, 8]: LF(c, 65536 s) = cnt[c] + occ(c,
     65536 s) for symbols 0-3, the marks before row 65536 s, then three zero
     columns (64-byte rows). So LF(c, i) is sup[i >> 16, c] plus counts
-    from i's entry alone."""
+    from i's entry alone.
+
+    ``samp_sum`` int64 [len(sa_samp) + 1]: the prefix sums of ``sa_samp``
+    (samp_sum[k] = sa_samp[0] + ... + sa_samp[k - 1], modulo 2^64), so
+    the sum of a run of samples is one difference: what the range BFS's
+    stats kernel (K4) adds for each node of a query's tree."""
 
     blk: torch.Tensor
     sup: torch.Tensor
+    samp_sum: torch.Tensor
 
 
 def _table_rows(idx: FMArrays) -> tuple[int, int]:
@@ -157,7 +164,10 @@ def block_table(idx: FMArrays, sa_intv: int) -> FMBlocks:
          (rel[:, 2] | (rel[:, 4] << 16))[:, None]],
         dim=1,
     )
-    return FMBlocks(pack.to_u32_bits(blk), sup)
+    samp_sum = torch.zeros(idx.sa_samp.shape[0] + 1, dtype=torch.int64,
+                           device=dev)
+    torch.cumsum(idx.sa_samp, dim=0, out=samp_sum[1:])
+    return FMBlocks(pack.to_u32_bits(blk), sup, samp_sum)
 
 
 def arrays_from_numpy(d, device) -> FMArrays:
@@ -404,14 +414,17 @@ def _kernel_inputs(idx: FMArrays, blocks: FMBlocks, **extra) -> None:
     dev = _device_of(idx)
     kernels.require(blocks.blk, "blocks.blk", torch.int32, 2)
     kernels.require(blocks.sup, "blocks.sup", torch.int64, 2)
-    nblk, nsup = _table_rows(idx)
-    if blocks.blk.shape != (nblk, 8) or blocks.sup.shape != (nsup, 8):
-        raise ValueError("blocks is not the block table of this index")
+    kernels.require(blocks.samp_sum, "blocks.samp_sum", torch.int64, 1)
     kernels.require(idx.pri, "pri", torch.int64, 0)
     kernels.require(idx.sa_samp, "sa_samp", torch.int64, 1)
     kernels.require(idx.lookup, "lookup", torch.int64, 1)
+    nblk, nsup = _table_rows(idx)
+    if (blocks.blk.shape != (nblk, 8) or blocks.sup.shape != (nsup, 8)
+            or blocks.samp_sum.shape[0] != idx.sa_samp.shape[0] + 1):
+        raise ValueError("blocks is not the block table of this index")
     kernels.require_cuda(
-        {"blocks.blk": blocks.blk, "blocks.sup": blocks.sup, "pri": idx.pri,
+        {"blocks.blk": blocks.blk, "blocks.sup": blocks.sup,
+         "blocks.samp_sum": blocks.samp_sum, "pri": idx.pri,
          "sa_samp": idx.sa_samp, "lookup": idx.lookup, **extra},
         dev,
     )
@@ -656,9 +669,15 @@ def batch_locate_stats_device(idx: FMArrays, beg: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _bfs_emit(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
-              sa_intv: int) -> torch.Tensor:
-    """Vectorized FMTree BFS (reference: fm_index.hpp:453-501).
+# The largest sa_intv kernel K4 takes: its depth-first walk keeps a stack of
+# 3 (sa_intv - 1) + 1 nodes a thread, sized at compile time.
+BFS_MAX_INTV = 32
+
+
+def bfs_locate_device_plain(idx: FMArrays, beg: torch.Tensor,
+                            end: torch.Tensor, sa_intv: int) -> torch.Tensor:
+    """Plain version of K4's locate entry point: the vectorized FMTree BFS
+    (reference: fm_index.hpp:453-501).
 
     Expands every query range by all 4 symbols per depth -- lf applied
     to RANGE ENDPOINTS only, never per row -- and emits, at each depth d,
@@ -673,10 +692,10 @@ def _bfs_emit(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
 
     Each occurrence at text position p is emitted exactly once, at depth
     p % sa_intv, so the emission count equals sum(end - beg). Returns the
-    positions, int64[sum(end - beg)], in kiss_tpu's order: query-major,
-    within a query by depth, within a depth by column (child = parent * 4
-    + symbol). The output is sized by the true total (one host sync), so
-    there is no capacity padding and no validity mask.
+    positions, int64[sum of the segment lengths], in kiss_tpu's order:
+    query-major, within a query by depth, within a depth by column (child
+    = parent * 4 + symbol). The output is sized by the true total (one
+    host sync), so there is no capacity padding and no validity mask.
 
     Memory: the widest intermediate is the ``lf_tab`` row gather of the
     last widening, int64 [Q, 4 ** (sa_intv - 2), 5] per endpoint (64 MB
@@ -708,27 +727,120 @@ def _bfs_emit(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
     return idx.sa_samp[base + r] + depth
 
 
-def bfs_locate_device(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
-                      sa_intv: int) -> torch.Tensor:
-    """Positions (int64, grouped query-major) of the row ranges
-    [beg, end) by the range BFS: kiss_tpu's ``bfs_locate_device`` without
-    its capacity padding (its ``pos[:total]``)."""
+def batch_bfs_stats_device_plain(idx: FMArrays, beg: torch.Tensor,
+                                 end: torch.Tensor, sa_intv: int):
+    """Plain version of K4's stats entry point: the BFS's positions,
+    counted and summed."""
+    pos = bfs_locate_device_plain(idx, beg, end, sa_intv)
+    return pos.shape[0], int(pos.sum())
+
+
+def _check_ranges(beg: torch.Tensor, end: torch.Tensor) -> None:
     kernels.require(beg, "beg", torch.int64, 1)
     kernels.require(end, "end", torch.int64, 1)
     if beg.shape != end.shape:
         raise ValueError("beg and end differ in shape")
-    return _bfs_emit(idx, beg, end, sa_intv)
+
+
+def _bfs_kernel_inputs(idx: FMArrays, blocks, sa_intv: int,
+                       **extra) -> None:
+    """Validate what kernel K4 reads: the index, its block table (which
+    the CPU's plain version does not need), sa_intv and ``extra``."""
+    if blocks is None:
+        raise ValueError(
+            "the range BFS of CUDA tensors launches kernel K4, which reads "
+            "the index's block table: pass blocks="
+        )
+    if not 2 <= sa_intv <= BFS_MAX_INTV:
+        raise ValueError(
+            f"kernel K4 takes sa_intv 2 .. {BFS_MAX_INTV}, not {sa_intv}"
+        )
+    _kernel_inputs(idx, blocks, **extra)
+
+
+def bfs_locate_device(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
+                      sa_intv: int, *, blocks: FMBlocks | None = None
+                      ) -> torch.Tensor:
+    """Positions (int64, grouped query-major) of the row ranges
+    [beg, end) by the range BFS: kiss_tpu's ``bfs_locate_device`` without
+    its capacity padding (its ``pos[:total]``), in its order. CUDA tensors
+    launch kernel K4's locate entry point (csrc/fm_bfs.cu), which reads
+    ``blocks``, the index's :func:`block_table` (required there); CPU
+    tensors run the plain version. The host reads the output's size once,
+    as the plain version does."""
+    _check_ranges(beg, end)
+    if beg.device.type == "cpu":
+        return bfs_locate_device_plain(idx, beg, end, sa_intv)
+    _bfs_kernel_inputs(idx, blocks, sa_intv, beg=beg, end=end)
+    dev = beg.device
+    q = beg.shape[0]
+    if q == 0:
+        return torch.empty(0, dtype=torch.int64, device=dev)
+    tabs = (blocks.blk.data_ptr(), blocks.sup.data_ptr(), idx.pri.data_ptr())
+    # the non-empty segments (row 0) and their rows (row 1) of each
+    # (query, depth), in order
+    counts = torch.empty((2, q * sa_intv), dtype=torch.int64, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = kernels.stream_of(dev)
+        kernels.check(
+            lib.kt_fm_bfs_count(*tabs, sa_intv, beg.data_ptr(),
+                                end.data_ptr(), q, counts.data_ptr(), stream),
+            "kt_fm_bfs_count",
+        )
+        incl = torch.empty_like(counts)
+        for row in range(2):  # 1-D scans: device-wide, unlike a 2-D one's
+            torch.cumsum(counts[row], dim=0, out=incl[row])
+        nseg, total = incl[:, -1].tolist()
+        out = torch.empty(total, dtype=torch.int64, device=dev)
+        seg_off = torch.empty(nseg, dtype=torch.int64, device=dev)
+        seg_start = torch.empty(nseg, dtype=torch.int64, device=dev)
+        kernels.check(
+            lib.kt_fm_bfs_locate(
+                *tabs, idx.sa_samp.data_ptr(), sa_intv, beg.data_ptr(),
+                end.data_ptr(), q, counts.data_ptr(), incl.data_ptr(), nseg,
+                total, seg_off.data_ptr(), seg_start.data_ptr(),
+                out.data_ptr(), stream,
+            ),
+            "kt_fm_bfs_locate",
+        )
+    kernels.count_launch("fm_bfs_locate")
+    return out
 
 
 def batch_bfs_stats_device(idx: FMArrays, beg: torch.Tensor,
-                           end: torch.Tensor, sa_intv: int):
+                           end: torch.Tensor, sa_intv: int, *,
+                           blocks: FMBlocks | None = None):
     """(total occurrences, location checksum) like
     :func:`batch_locate_stats_device`, but via the range BFS -- the
     locate path for indexes whose SA order is not known fully sorted.
     The checksum is one int64 sum of the positions, the integer kiss_tpu
-    assembles as sum(lo) + (sum(hi) << 16)."""
-    pos = bfs_locate_device(idx, beg, end, sa_intv)
-    return pos.shape[0], int(pos.sum())
+    assembles as sum(lo) + (sum(hi) << 16). CUDA tensors launch kernel
+    K4's stats entry point (csrc/fm_bfs.cu), one pass over the queries'
+    trees that reads ``blocks`` (required there) and sums each node's
+    positions from ``blocks.samp_sum``; the host waits once, for the two
+    integers. CPU tensors run the plain version."""
+    _check_ranges(beg, end)
+    if beg.device.type == "cpu":
+        return batch_bfs_stats_device_plain(idx, beg, end, sa_intv)
+    _bfs_kernel_inputs(idx, blocks, sa_intv, beg=beg, end=end)
+    if beg.shape[0] == 0:
+        return 0, 0
+    out = torch.empty(2, dtype=torch.int64, device=beg.device)
+    lib = kernels.library()
+    with torch.cuda.device(beg.device):
+        kernels.check(
+            lib.kt_fm_bfs_stats(
+                blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                idx.pri.data_ptr(), blocks.samp_sum.data_ptr(), sa_intv,
+                beg.data_ptr(), end.data_ptr(), beg.shape[0], out.data_ptr(),
+                kernels.stream_of(beg.device),
+            ),
+            "kt_fm_bfs_stats",
+        )
+    kernels.count_launch("fm_bfs_stats")
+    total, checksum = out.tolist()
+    return total, checksum
 
 
 # ---------------------------------------------------------------------------
@@ -976,7 +1088,7 @@ class FMIndex:
         end = np.atleast_1d(np.asarray(end)).astype(np.int64)
         pos = bfs_locate_device(
             self.arrays, torch.from_numpy(beg).to(dev),
-            torch.from_numpy(end).to(dev), self.sa_intv,
+            torch.from_numpy(end).to(dev), self.sa_intv, blocks=self.blocks,
         )
         return pos.cpu().numpy().astype(np.uint32)
 
@@ -1029,7 +1141,8 @@ class FMIndex:
             return 0, 0
         beg, end, _ = self._ranges(queries)
         if self._routes_to_bfs():
-            return batch_bfs_stats_device(self.arrays, beg, end, self.sa_intv)
+            return batch_bfs_stats_device(self.arrays, beg, end, self.sa_intv,
+                                          blocks=self.blocks)
         return batch_locate_stats_device(self.arrays, beg, end, self.sa_intv,
                                          blocks=self.blocks)
 

@@ -35,8 +35,8 @@ class ShardedFMQuery:
     Results equal the single-device :class:`FMIndex` paths.
 
     Locate routing mirrors the single-device rules: the row-sharded LF
-    walk for full-sort indexes, the range BFS on the lead device's tables
-    otherwise (exact for k-ordered archives)."""
+    walk for full-sort indexes, the range BFS (kernel K4 on a card) on the
+    lead device's tables otherwise (exact for k-ordered archives)."""
 
     def __init__(self, mesh, fmi: fm.FMIndex):
         self.mesh = mesh
@@ -93,11 +93,16 @@ class ShardedFMQuery:
         if total == 0:
             return 0, 0
         if self.fmi.sa_intv != 1 and not self.fmi.full_sa:
-            positions = self.fmi._bfs_positions(beg, end)
-        else:
-            rows, _starts = fm._ragged_rows(beg, lens)
-            positions = self._locate(rows)
-        return total, int(positions.astype(np.int64).sum())
+            # the range BFS's stats on the lead device's tables (kernel K4
+            # on a card): two integers come back, not every position
+            dev = fm._device_of(self.fmi.arrays)
+            return fm.batch_bfs_stats_device(
+                self.fmi.arrays, torch.from_numpy(beg).to(dev),
+                torch.from_numpy(end).to(dev), self.fmi.sa_intv,
+                blocks=self.fmi.blocks,
+            )
+        rows, _starts = fm._ragged_rows(beg, lens)
+        return total, int(self._locate(rows).astype(np.int64).sum())
 
 
 class ShardedArrays(NamedTuple):

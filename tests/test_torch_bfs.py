@@ -20,7 +20,8 @@ from tests import oracle
 
 torch.set_num_threads(1)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-QLEN = 9  # 32 >= sa_intv - 1 + QLEN: the BFS is exact on a 32-ordered SA
+QLEN = 9  # 32 >= sa_intv - 1 + QLEN (sa_intv <= 8): the BFS is exact on a
+# 32-ordered SA
 
 
 def _np_arrays(fmi):
@@ -34,7 +35,8 @@ def text():
     return oracle.repeat_heavy_dna(6_000, unit=40, seed=8)
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["sa_intv2", "sa_intv4"])
+@pytest.fixture(scope="module", params=[2, 4, 8],
+                ids=["sa_intv2", "sa_intv4", "sa_intv8"])
 def bounded(request, text):
     """(sa_intv, JAX index built at sort_len=32, its arrays in the port)."""
     sa_intv = request.param
@@ -229,7 +231,7 @@ def _edge_queries(text):
     return np.arange(4, dtype=np.int8)[:, None], fives
 
 
-@pytest.mark.parametrize("sa_intv", [2, 4])
+@pytest.mark.parametrize("sa_intv", [2, 4, 8])
 @pytest.mark.parametrize("n", [63, 127, 1023])
 def test_bfs_at_n_plus_one_multiple_of_64(n, sa_intv):
     """N = n + 1 a multiple of 64: a range endpoint at row N has no b_tab

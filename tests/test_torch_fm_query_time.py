@@ -77,5 +77,41 @@ def test_main_rehearses_on_the_cpu(capsys):
     out = capsys.readouterr().out
     for what in ("K2 chunk 100", "K2 batch 400", "K3 stats chunk 100",
                  "as the CLI calls it", "K3 rows -q rows",
-                 "K3 rows random rows 400"):
+                 "K3 rows random rows 400", "K4 fm_bfs_stats chunk 100",
+                 "K4 fm_bfs_locate chunk 100", "K4 fm_bfs_stats batch 400",
+                 "K4 fm_bfs_locate batch 400"):
         assert what in out, what
+
+
+def test_bfs_work_matches_the_kernels_walk():
+    """The nodes, segments and positions that K4's bound counts are those
+    of the kernel's pruned walk (the CPU model of test_torch_bfs_kernel)."""
+    from tests.test_torch_bfs_kernel import Model
+
+    text = oracle.repeat_heavy_dna(3000, unit=40, seed=5)
+    fmi = fm.FMIndex(sa_intv=4, device="cpu").build(text, sort_len=32)
+    qw, _, _ = fqt.query_inputs(fmi, text, 60, "cpu")
+    beg, end, _ = fm.get_range_packed_device_plain(fmi.arrays, qw, fqt.QLEN,
+                                                   0)
+    model = Model(fmi)
+    nodes = entries = lfs = segments = positions = 0
+    for b, e in zip(beg.tolist(), end.tolist()):
+        stack = [(b, e)] if b < e else []
+        # the node ranges in the walk's order, beside what it yields
+        for d, mb, me in model.walk(b, e):
+            nb, ne = stack.pop()
+            one = ne - nb == 1
+            nodes += 1
+            entries += 1 if one else 2
+            if d < 3:
+                lfs += (nb != int(fmi.arrays.pri)) if one else 8
+                kids = [tuple(int(fm._lf(fmi.arrays, torch.tensor([c]),
+                                         torch.tensor([x]))[0])
+                              for x in (nb, ne))
+                        for c in range(4)]
+                stack += [k for k in reversed(kids) if k[0] < k[1]]
+            segments += me > mb
+            positions += me - mb
+    assert fqt.bfs_work(fmi.arrays, beg, end, 4) == (
+        nodes, entries, lfs, segments, positions)
+    assert positions == int((end - beg).sum()) and entries < 2 * nodes

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1 ``radix_sort_words``, K2 ``fm_backward_search``
 (``get_range_packed_device``), K3 ``fm_locate_rows`` / ``fm_locate_stats``
-(``locate_rows_device`` / ``batch_locate_stats_device``), and the seven
-probes P1-P7 of ``kiss_tpu_torch.experiments``. All outputs are integers,
-so every comparison is exact (tolerance 0).
+(``locate_rows_device`` / ``batch_locate_stats_device``), K4
+``fm_bfs_locate`` / ``fm_bfs_stats`` (``bfs_locate_device`` /
+``batch_bfs_stats_device``), and the seven probes P1-P7 of
+``kiss_tpu_torch.experiments``. All outputs are integers, so every
+comparison is exact (tolerance 0).
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false. On a machine with a
@@ -312,6 +314,113 @@ def test_locate_other_sampling(cuda, sa_intv):
     )
 
 
+def _bfs_cases(f, text, nq, seed):
+    """Row ranges of ``f`` for K4: sampled 9-mers (a tenth random), the
+    one-symbol ranges (T's ends at row N), one range of a quarter of the
+    SA, the whole table, empty ranges, and no range."""
+    rng = np.random.default_rng(seed)
+    q = text[rng.integers(0, len(text) - 9, nq)[:, None]
+             + np.arange(9)[None, :]]
+    q[::10] = rng.integers(0, 4, (len(q[::10]), 9))
+    b, e, _ = f._ranges(np.ascontiguousarray(q, dtype=np.int8))
+    b1, e1, _ = f._ranges(np.arange(4, dtype=np.int8)[:, None])
+    N = f.n_rows
+    none = torch.empty(0, dtype=torch.int64, device="cuda")
+    return {
+        "9-mers": (b, e), "one symbol": (b1, e1), "T": (b1[3:], e1[3:]),
+        "a quarter": _ranges([(N // 4, N // 2)]), "whole": _ranges([(0, N)]),
+        "empty": _ranges([(7, 7)] * 300), "none": (none, none),
+    }
+
+
+def _bfs_match_plain(f, cases):
+    for name, (beg, end) in cases.items():
+        got = fm.bfs_locate_device(f.arrays, beg, end, f.sa_intv,
+                                   blocks=f.blocks)
+        want = fm.bfs_locate_device_plain(f.arrays, beg, end, f.sa_intv)
+        assert got.device == beg.device and torch.equal(got, want), name
+        assert fm.batch_bfs_stats_device(
+            f.arrays, beg, end, f.sa_intv, blocks=f.blocks) == (
+            fm.batch_bfs_stats_device_plain(f.arrays, beg, end, f.sa_intv)
+        ), name
+
+
+@pytest.mark.parametrize("sa_intv", [2, 4, 8])
+@pytest.mark.parametrize("n", [70_000, (1 << 16) - 1])
+def test_bfs_matches_plain(cuda, n, sa_intv):
+    """K4's locate and stats entry points on 32-ordered indexes across a
+    superblock, and at N = 65,536 (N % 64 == 0: an endpoint at row N has
+    no b_tab row)."""
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(n, unit=300, seed=sa_intv)
+    f = fm.FMIndex(sa_intv=sa_intv, device="cuda").build(text, sort_len=32)
+    assert f._routes_to_bfs()
+    _bfs_match_plain(f, _bfs_cases(f, text, 3000 if sa_intv < 8 else 500,
+                                   seed=n + sa_intv))
+
+
+def test_bfs_at_sa_intv_16_against_the_oracle(cuda):
+    """sa_intv 16 takes K4's larger stack (9 .. 32), where the plain
+    version's widest level, [Q, 4^14, 5], does not fit: each query's
+    positions are its occurrences (32 >= 15 + 9: the BFS is exact on a
+    32-ordered SA), and the whole table's range gives every position."""
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(20_000, unit=300, seed=16)
+    f = fm.FMIndex(sa_intv=16, device="cuda").build(text, sort_len=32)
+    rng = np.random.default_rng(16)
+    q = np.stack([text[p : p + 9] for p in rng.integers(0, 20_000 - 9, 40)])
+    beg, end, _ = f._ranges(q)
+    pos = fm.bfs_locate_device(f.arrays, beg, end, 16, blocks=f.blocks)
+    hits = [oracle.search_all(text, x) for x in q]
+    starts = np.concatenate([[0], np.cumsum([len(h) for h in hits])])
+    pos = pos.cpu().numpy()
+    for i, h in enumerate(hits):
+        np.testing.assert_array_equal(np.sort(pos[starts[i]:starts[i + 1]]),
+                                      h)
+    assert fm.batch_bfs_stats_device(f.arrays, beg, end, 16,
+                                     blocks=f.blocks) == (
+        sum(map(len, hits)), sum(int(h.sum()) for h in hits))
+    whole = fm.bfs_locate_device(f.arrays, *_ranges([(0, f.n_rows)]), 16,
+                                 blocks=f.blocks)
+    np.testing.assert_array_equal(np.sort(whole.cpu().numpy()),
+                                  np.arange(f.n_rows))
+
+
+def test_bfs_100k_ranges_match_plain(index_pair):
+    """K4 on 100,000 ranges (the CLI's chunk), the index of a fully
+    sorted SA (the BFS is exact on it too)."""
+    text, idx = index_pair
+    f = idx[0]
+    rng = np.random.default_rng(9)
+    q = text[rng.integers(0, len(text) - 12, 100_000)[:, None]
+             + np.arange(12)[None, :]]
+    q[::10] = rng.integers(0, 4, (10_000, 12))
+    beg, end, _ = f._ranges(np.ascontiguousarray(q, dtype=np.int8))
+    _bfs_match_plain(f, {"100k": (beg, end)})
+
+
+def test_bfs_route_launches_k4(cuda):
+    """On a card the BFS route of FMIndex (get_offsets, batch_query_stats)
+    launches K4's entry points and not K3's, and answers as the oracle."""
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(20_000, unit=300, seed=3)
+    f = fm.FMIndex(sa_intv=4, device="cuda").build(text, sort_len=32)
+    q = np.stack([text[p : p + 11] for p in (100, 5000, 12_000)])
+    kernels.reset_launch_counts()
+    hits = [oracle.search_all(text, x) for x in q]
+    assert f.batch_query_stats(q) == (sum(map(len, hits)),
+                                      sum(int(h.sum()) for h in hits))
+    beg, end, _ = f.get_range(q[0])
+    np.testing.assert_array_equal(np.sort(f.get_offsets(beg, end)), hits[0])
+    assert kernels.LAUNCHES["fm_bfs_stats"] == 1
+    assert kernels.LAUNCHES["fm_bfs_locate"] == 1
+    assert kernels.LAUNCHES["fm_locate_stats"] == 0
+    assert kernels.LAUNCHES["fm_locate_rows"] == 0
+
+
 def test_wrappers_need_the_block_table(index_pair):
     """On the card the wrappers launch the kernels, which read the block
     table: without it, or with another index's, they raise, with no
@@ -329,6 +438,13 @@ def test_wrappers_need_the_block_table(index_pair):
         fm.locate_rows_device(f.arrays, rows, 4, blocks=other)
     with pytest.raises(ValueError, match="block table"):
         fm.batch_locate_stats_device(f.arrays, rows, rows, 4, blocks=other)
+    for bfs in (fm.bfs_locate_device, fm.batch_bfs_stats_device):
+        with pytest.raises(ValueError, match="block table"):
+            bfs(f.arrays, rows, rows, 4)
+        with pytest.raises(ValueError, match="block table"):
+            bfs(f.arrays, rows, rows, 4, blocks=other)
+        with pytest.raises(ValueError, match="sa_intv"):
+            bfs(f.arrays, rows, rows, 1, blocks=f.blocks)
 
 
 def test_sa_on_card_equals_cpu(cuda):

@@ -123,6 +123,23 @@ def test_sharded_query_equals_kiss_tpu(archives, lookup, D):
             np.sort(pos), oracle.search_all(text, queries[qi]))
 
 
+def test_sharded_stats_download_no_positions(archives, monkeypatch):
+    """``batch_query_stats`` on the mesh downloads two integers, not every
+    position: on the 32-ordered archive it takes the range BFS's stats
+    (kernel K4 on a card) on the lead device's tables. They equal
+    kiss_tpu's on its virtual mesh."""
+    _, idx, queries = archives
+    jf, tf = idx[0]
+    jq = jfm_sharded.ShardedFMQuery(jmesh.make_mesh(4), jf)
+    tq = fm_sharded.ShardedFMQuery(make_mesh(4, device="cpu"), tf)
+
+    def positions(*args, **kwargs):
+        raise AssertionError("the positions went to the host")
+
+    monkeypatch.setattr(fm.FMIndex, "_bfs_positions", positions)
+    assert tq.batch_query_stats(queries) == jq.batch_query_stats(queries)
+
+
 def test_sharded_locate_every_row():
     """The row-sharded walk at every row of a full-sort index (sa_intv 4)
     and at sa_intv 1 against the single-device walk, on 3 shards."""
