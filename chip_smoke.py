@@ -17,8 +17,10 @@ exits non-zero and prints no result line):
      N = 2**22 + 7: W = 1, all-equal keys, a stable payload, lookup seeds;
      K1 also at N = 0, 1 and one key either side of one and two tiles; K4
      (the range BFS) on a ``-k 32`` index of the same text, on a query
-     batch, the one-symbol ranges, a quarter of the SA, the whole table and
-     empty ranges;
+     batch, the one-symbol ranges, a quarter of the SA, the whole table,
+     empty ranges and a batch of 25-mer ranges with quarters among them,
+     where the quarters are shown (``kernels.SPILLED``) to take K4's spill
+     route;
   4. the golden outputs of the reference binary (tests/golden/*.npz)
      reproduced on the card, and the ``.fmi`` archives the reference
      binary wrote loaded and queried through the range BFS;
@@ -44,7 +46,7 @@ exits non-zero and prints no result line):
      N`` route, four shards on this card) through K4 with the oracle's
      answer; K4's two entry points held against their plain versions
      (positions element for element) and timed at a CLI chunk and the 1M
-     batch (``experiments.fm_query_time.measure_bfs``);
+     batch, locate also by pass (``experiments.fm_query_time.measure_bfs``);
   7a. the out-of-core sorter at full width: ``suffix_sort --external -k
      256`` through the CLI (launch counters reset just before and read
      just after), and the library call at k = 100 and k = -1 with
@@ -108,8 +110,9 @@ exits non-zero and prints no result line):
      (``torch.profiler``);
      then one JSON line with each kernel's launches (K1-K3: the main
      path's; K4: the BFS route's ``-b`` for stats and ``-q`` for locate,
-     every BFS route's under ``launches_by_path``), error, times and
-     bound, and as the last line ``{"ok": true, "device": {...}}``.
+     every BFS route's under ``launches_by_path``, the queries on its
+     spill route under ``spilled_by_case``), error, times and bound, and
+     as the last line ``{"ok": true, "device": {...}}``.
 
 It imports the standard library, numpy, torch and kiss_tpu_torch only:
 the synthetic genome and the patterns come from the port's own
@@ -318,12 +321,24 @@ def phase_kernels(torch, np, err):
         return tuple(torch.tensor(x, dtype=torch.int64, device=dev)
                      for x in zip(*ranges))
 
+    # a batch of 25-mer ranges with ranges of a quarter of the SA among
+    # them: the quarters (tree bound 85 nodes, over K4's 64) take the spill
+    # route, the 25-mers the shared frontier
+    p25 = torch.from_numpy(pack.np_pack_queries_2bit(
+        sample_patterns(text, 1 << 16, 25, seed=25)).view(np.int32)).to(dev)
+    bm, em, _ = fm.get_range_packed_device(k32.arrays, p25, 25, 0,
+                                           blocks=k32.blocks)
+    quarters = torch.arange(7, bm.shape[0], 8191, device=dev)
+    bm[quarters], em[quarters] = N // 4, N // 2
     bfs_cases = {
         f"{nq} x 12": (b, e), "one symbol": (b1, e1),
         "a quarter": pair((N // 4, N // 2)), "whole": pair((0, N)),
         "empty": pair(*[(7, 7)] * 100),
+        f"{bm.shape[0]} x 25 with {quarters.numel()} quarters": (bm, em),
     }
-    for bb, ee in bfs_cases.values():
+    spilled = {}  # queries on K4's spill route, by case and entry point
+    for name, (bb, ee) in bfs_cases.items():
+        kernels.reset_launch_counts()
         err["fm_bfs_locate"] = max(err["fm_bfs_locate"], exact(
             fm.bfs_locate_device(k32.arrays, bb, ee, 4, blocks=k32.blocks),
             fm.bfs_locate_device_plain(k32.arrays, bb, ee, 4)))
@@ -331,15 +346,22 @@ def phase_kernels(torch, np, err):
             fm.batch_bfs_stats_device(k32.arrays, bb, ee, 4,
                                       blocks=k32.blocks),
             fm.batch_bfs_stats_device_plain(k32.arrays, bb, ee, 4)))
+        spilled[name] = dict(kernels.SPILLED)
     torch.cuda.synchronize()
+    mixed = spilled[list(bfs_cases)[-1]]
+    check(spilled["a quarter"] == {"fm_bfs_stats": 1, "fm_bfs_locate": 1}
+          and min(mixed.values()) >= quarters.numel(),
+          f"the quarters did not take K4's spill route: {spilled}")
     say(
         f"kernels vs plain, edge cases (exact, tolerance 0): K1 on "
         f"{len(cases)} key sets, 5 at N = {N} and {2 * len(small)} at N = "
         f"{', '.join(map(str, small))}; K2 on {nq} queries x qlen 25/12 x "
         f"lookup 0/8 over a {SMALL_N}-char index; K3 rows ({nq}) and "
         f"stats; K4 locate and stats on a -k 32 index of it ("
-        f"{', '.join(bfs_cases)}): all equal"
+        f"{', '.join(bfs_cases)}): all equal; queries on K4's spill route "
+        f"by case {spilled}"
     )
+    return spilled
 
 
 def phase_goldens(torch, np):
@@ -1153,7 +1175,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     err = {name: 0 for name in KERNELS}
-    phase_kernels(torch, np, err)
+    spilled = phase_kernels(torch, np, err)
 
     # ---- 4. goldens
     phase_goldens(torch, np)
@@ -1674,10 +1696,13 @@ def main() -> int:
         by_name[name].update({
             "launches_by_path": bfs_by_path[name],
             "shapes": {shape: {key: v[key] for key in ("ms", "plain_ms",
-                                                       "wrapper_ms")}
+                                                       "wrapper_ms",
+                                                       "passes", "spilled")}
                        | {"bound_ms": v["bound"][0],
                           "bound_by": v["bound"][1]}
                        for (k, shape), v in bfs_split.items() if k == name},
+            "spilled_by_case": {case: counts[name]
+                                for case, counts in spilled.items()},
         })
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@
 //     word 7     occ2 | marks << 16   of superblock s = j >> 10
 //     occ3 = 64 (j & 1023) - occ0 - occ1 - occ2, less one if the sentinel
 //     row (pri: packs as symbol 0, counts as none) lies among those rows.
-//   sup[s] = int64 [LF(0..3, 65536 s), marks before row 65536 s, 0, 0, 0]
+//   sup[s] = int64 [LF(0..3, 65536 s), marks before row 65536 s, 0, then
+//     K4's 32-bit copy of LF(0..2, 65536 s) and the marks in 16 bytes]
 //     (LF(c, i) = cnt[c] + occ(c, i)).
 // Counts, rows and positions are int64.
 //

@@ -2,7 +2,11 @@
 timed alone at the shapes the main path launches them, beside the 32-byte
 sectors each table layout must read for this run's inputs; and K4
 ``fm_bfs_stats`` / ``fm_bfs_locate`` (the range BFS) at the same query
-shapes over a 32-ordered index of the same text, the BFS route's.
+shapes over a 32-ordered index of the same text, the BFS route's: locate
+also by pass (the walk, the expansion), the stats pass split into builds
+without its ``samp_sum`` reads, with a visit that does nothing and as its
+skeleton alone (``measure_bfs_split``), and ``nvcc -Xptxas -v`` of its
+source (registers, stack frame and spills of each kernel, ``ptxas_report``).
 
 Shapes, over the index of the 48,800,648-character synthetic genome
 (``utils.synth``): one CLI chunk of ``fmindex_query -b`` (100,000 patterns
@@ -25,6 +29,7 @@ per 16 rows, a 12-byte row per 64) and the block table (one aligned
 sectors, which the kernels read, over the kernel's time.
 
     python -m kiss_tpu_torch.experiments.fm_query_time [--device cuda]
+        [--bfs-only]
 
 ``--device cpu --n 300000 --queries 20000 --chunk 5000`` rehearses the
 control flow on the CPU (the plain versions, the host's clock).
@@ -33,6 +38,8 @@ control flow on the CPU (the plain versions, the host's clock).
 from __future__ import annotations
 
 import argparse
+import os
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +61,7 @@ CLI_CHUNK = 100_000
 QLEN = 25
 SA_INTV = 4
 REPS = 100
+K2_SECTORS_PER_S = 131e9  # K2's random 32-byte sectors from L2 (PERF.md §6)
 
 # The K2 and K3 bounds count what this run's data needs: the LF steps the
 # queries really take (early stop), the walk steps the rows really take and
@@ -413,10 +421,11 @@ def measure(fmi, qw: torch.Tensor, q_rows: torch.Tensor,
 def _bfs_entry_points(fmi, dev):
     """Launchers of K4 on prepared inputs: ``stats(beg, end)`` and
     ``locate(beg, end)`` each return (launch, result) as
-    :func:`_entry_points`'s. The locate launch runs the count pass, the
-    prefix sum and the locate passes into buffers sized by one earlier
-    call: the wrapper's read of the output's size is not in the window.
-    On the CPU they call the wrappers (the plain versions)."""
+    :func:`_entry_points`'s, and ``locate``'s also its passes, {name:
+    launch}. Their buffers are sized by one earlier run (as the wrappers
+    size them), so the locate launch runs the walk and the expansion with
+    no read of the sizes in the window. On the CPU they call the wrappers
+    (the plain versions), and locate has no passes."""
     a, blocks = fmi.arrays, fmi.blocks
     if dev.type != "cuda":
         def wrapped(fn, beg, end):
@@ -428,48 +437,85 @@ def _bfs_entry_points(fmi, dev):
             return launch, lambda: last[0]
 
         return (lambda beg, end: wrapped(fm.batch_bfs_stats_device, beg, end),
-                lambda beg, end: wrapped(fm.bfs_locate_device, beg, end))
+                lambda beg, end: (*wrapped(fm.bfs_locate_device, beg, end),
+                                  {}))
     lib = kernels.library()
     stream = kernels.stream_of(dev)
     tabs = (blocks.blk.data_ptr(), blocks.sup.data_ptr(), a.pri.data_ptr())
 
+    def pool_of(nodes):
+        return torch.empty(fm._BFS_NODE_BYTES * nodes, dtype=torch.uint8,
+                           device=dev)
+
     def stats(beg, end):
-        out = torch.empty(2, dtype=torch.int64, device=dev)
-        args = (*tabs, blocks.samp_sum.data_ptr(), SA_INTV, beg.data_ptr(),
-                end.data_ptr(), beg.shape[0], out.data_ptr(), stream)
+        out = torch.empty(4, dtype=torch.int64, device=dev)
+        keep = {}
+
+        def run(_, pool_cap):
+            keep["pool"] = pool_of(pool_cap)
+            keep["args"] = (*tabs, blocks.samp_sum.data_ptr(), SA_INTV,
+                            beg.data_ptr(), end.data_ptr(), beg.shape[0],
+                            keep["pool"].data_ptr(), pool_cap, out.data_ptr(),
+                            stream)
+            kernels.check(lib.kt_fm_bfs_stats(*keep["args"]),
+                          "kt_fm_bfs_stats")
+            keep["runs"] = keep.get("runs", 0) + 1
+            keep["need"] = out[3].item()
+            return None, 0, keep["need"]
+
+        fm.bfs_until_it_fits(run, 0, fm.bfs_guess(beg.shape[0])[1])
 
         def launch():
-            kernels.check(lib.kt_fm_bfs_stats(*args), "kt_fm_bfs_stats")
+            kernels.check(lib.kt_fm_bfs_stats(*keep["args"]),
+                          "kt_fm_bfs_stats")
 
-        return launch, lambda: tuple(out.tolist())
+        launch.fit = (keep["need"], keep["runs"])
+
+        return launch, lambda: tuple(out[:2].tolist())
 
     def locate(beg, end):
         q = beg.shape[0]
-        counts = torch.empty((2, q * SA_INTV), dtype=torch.int64, device=dev)
-        incl = torch.empty_like(counts)
-        count_args = (*tabs, SA_INTV, beg.data_ptr(), end.data_ptr(), q,
-                      counts.data_ptr(), stream)
-        def scan():
-            for row in range(2):
-                torch.cumsum(counts[row], dim=0, out=incl[row])
+        scratch = torch.empty(5 + 5 * -(-q // fm.BFS_TILE),
+                              dtype=torch.int64, device=dev)
+        keep = {}
 
-        kernels.check(lib.kt_fm_bfs_count(*count_args), "kt_fm_bfs_count")
-        scan()
-        nseg, total = incl[:, -1].tolist()
-        seg = torch.empty((2, nseg), dtype=torch.int64, device=dev)
+        def run(seg_cap, pool_cap):
+            keep["pool"] = pool_of(pool_cap)
+            keep["segs"] = torch.empty((2, seg_cap), dtype=torch.int64,
+                                       device=dev)
+            keep["args"] = (*tabs, SA_INTV, beg.data_ptr(), end.data_ptr(), q,
+                            keep["pool"].data_ptr(), pool_cap,
+                            keep["segs"][0].data_ptr(),
+                            keep["segs"][1].data_ptr(), seg_cap,
+                            scratch.data_ptr(), stream)
+            kernels.check(lib.kt_fm_bfs_segments(*keep["args"]),
+                          "kt_fm_bfs_segments")
+            nseg, total, _, need = scratch[:4].tolist()
+            keep["runs"] = keep.get("runs", 0) + 1
+            keep["need"] = need
+            return (nseg, total), nseg, need
+
+        nseg, total = fm.bfs_until_it_fits(run, *fm.bfs_guess(q))
         out = torch.empty(total, dtype=torch.int64, device=dev)
-        args = (*tabs, a.sa_samp.data_ptr(), SA_INTV, beg.data_ptr(),
-                end.data_ptr(), q, counts.data_ptr(), incl.data_ptr(), nseg,
-                total, seg[0].data_ptr(), seg[1].data_ptr(), out.data_ptr(),
-                stream)
+        segs = keep["segs"]
+        expand_args = (a.sa_samp.data_ptr(), segs[0].data_ptr(),
+                       segs[1].data_ptr(), nseg, total, out.data_ptr(),
+                       stream)
+
+        def walk():
+            kernels.check(lib.kt_fm_bfs_segments(*keep["args"]),
+                          "kt_fm_bfs_segments")
+
+        def expand():
+            kernels.check(lib.kt_fm_bfs_expand(*expand_args),
+                          "kt_fm_bfs_expand")
 
         def launch():
-            kernels.check(lib.kt_fm_bfs_count(*count_args),
-                          "kt_fm_bfs_count")
-            scan()
-            kernels.check(lib.kt_fm_bfs_locate(*args), "kt_fm_bfs_locate")
+            walk()
+            expand()
 
-        return launch, lambda: out
+        launch.fit = (keep["need"], keep["runs"])
+        return launch, lambda: out, {"walk": walk, "expansion": expand}
 
     return stats, locate
 
@@ -478,9 +524,12 @@ def measure_bfs(fmi, beg: torch.Tensor, end: torch.Tensor, chunk: int,
                 smi: str, say=print, reps: int = REPS):
     """Time K4's stats and locate entry points at a CLI chunk of the ranges
     and at all of them, on prepared inputs (CUDA events), and as the CLI
-    calls them (the wrappers, download included, host clock); hold each
-    output to the plain version's (exact) and time the plain versions too.
-    Prints one line a kernel and shape; returns {(kernel, shape): dict}."""
+    calls them (the wrappers, download included, host clock); locate also
+    by pass (the walk, the expansion); hold each output to the plain
+    version's (exact) and time the plain versions too. Prints one line a
+    kernel and shape, with the block-table entries a second the walk reaches
+    beside K2's sectors a second, and the queries on the spill route;
+    returns {(kernel, shape): dict}."""
     dev = beg.device
     a = fmi.arrays
     stats, locate = _bfs_entry_points(fmi, dev)
@@ -493,24 +542,148 @@ def measure_bfs(fmi, beg: torch.Tensor, end: torch.Tensor, chunk: int,
                  fm.batch_bfs_stats_device, True),
                 ("fm_bfs_locate", locate, fm.bfs_locate_device_plain,
                  fm.bfs_locate_device, False)):
-            launch, result = entry(b, e)
+            launch, result, *passes = entry(b, e)
             ms = time_ms(launch, reps, dev)
             want = plain(a, b, e, SA_INTV)
             _exact(result(), want, f"K4 {name} {shape}")
+            pass_ms = {p: time_ms(fn, reps, dev)
+                       for p, fn in (passes[0] if passes else {}).items()}
             plain_ms = time_ms(lambda: plain(a, b, e, SA_INTV), 3, dev)
+            kernels.SPILLED[name] = 0
             wrapped = host_ms(lambda: wrapper(a, b, e, SA_INTV,
                                               blocks=fmi.blocks), reps)
+            spilled = kernels.SPILLED[name] // (reps + 1)
             bound = k4_bound(fmi, b.shape[0], work, is_stats)
             out[(name, shape)] = dict(ms=ms, plain_ms=plain_ms,
                                       wrapper_ms=wrapped, bound=bound,
-                                      work=work)
+                                      work=work, passes=pass_ms,
+                                      spilled=spilled)
+            by_pass = "".join(f", {p} {t:.4f} ms" for p, t in pass_ms.items())
+            fit = getattr(launch, "fit", None)
+            if fit:
+                out[(name, shape)]["pool_need"] = fit[0]
+                by_pass += (f"; pool need {fit[0]} nodes (first given "
+                            f"{fm.bfs_guess(b.shape[0])[1]}, {fit[1]} "
+                            f"launch(es) to fit)")
             say(f"K4 {name} {shape} ranges on {smi}: kernel alone {ms:.4f} "
-                f"ms over {reps} launches, as the CLI calls it (host clock, "
-                f"download included) {wrapped:.4f} ms, plain version "
+                f"ms over {reps} launches{by_pass}, as the CLI calls it (host "
+                f"clock, download included) {wrapped:.4f} ms, plain version "
                 f"{plain_ms:.4f} ms; {work.nodes} non-empty nodes, "
-                f"{work.entries} entries read, {work.lfs} LF steps, "
-                f"{work.segments} non-empty segments, {work.positions} "
-                f"positions; bound {bound[0]:.4f} ms ({bound[1]})")
+                f"{work.entries} entries read "
+                f"({work.entries / (pass_ms.get('walk', ms) * 1e6):.1f} G/s; "
+                f"K2 {K2_SECTORS_PER_S / 1e9:.0f} G sectors/s), {work.lfs} LF "
+                f"steps, {work.segments} non-empty segments, {work.positions} "
+                f"positions, {spilled} queries on the spill route; bound "
+                f"{bound[0]:.4f} ms ({bound[1]})")
+    return out
+
+
+# ---------------------------------------------------------------- K4 split
+
+SPLIT_MODES = ("full", "without the samp_sum reads",
+               "a visit that does nothing",
+               "the walk's skeleton (no table reads, one child a node)")
+
+
+def measure_bfs_split(fmi, beg: torch.Tensor, end: torch.Tensor, chunk: int,
+                      smi: str, say=print, reps: int = REPS):
+    """K4's stats pass at a CLI chunk and at all the ranges, in builds of
+    the same source (``kt_fm_bfs_stats_split``, which only this experiment
+    calls; ``SPLIT_MODES``): as the kernel runs, without its samp_sum reads,
+    with a visit that does nothing (the walk's reads and LF steps alone),
+    and the walk's skeleton (its rounds with no table read). Prints one line
+    a shape with the times and the block-table entries a second each
+    reaches, beside K2's 131 G sectors a second; returns {shape: {mode:
+    ms}}. Needs the card."""
+    dev = beg.device
+    a, blocks = fmi.arrays, fmi.blocks
+    lib = kernels.library()
+    stream = kernels.stream_of(dev)
+    out = {}
+    for shape, (b, e) in ((f"chunk {chunk}", (beg[:chunk], end[:chunk])),
+                          (f"batch {beg.shape[0]}", (beg, end))):
+        work = bfs_work(a, b, e, SA_INTV)
+        res = torch.empty(4, dtype=torch.int64, device=dev)
+        # nq + 2^16 pool nodes of 9 bytes, as the wrapper first gives
+        pool = torch.empty(9 * (b.shape[0] + (1 << 16)), dtype=torch.uint8,
+                           device=dev)
+        times = {}
+        for mode, name in enumerate(SPLIT_MODES):
+            args = (mode, blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                    a.pri.data_ptr(), blocks.samp_sum.data_ptr(), SA_INTV,
+                    b.data_ptr(), e.data_ptr(), b.shape[0], pool.data_ptr(),
+                    b.shape[0] + (1 << 16), res.data_ptr(), stream)
+
+            def launch():
+                kernels.check(lib.kt_fm_bfs_stats_split(*args),
+                              "kt_fm_bfs_stats_split")
+
+            times[name] = time_ms(launch, reps, dev)
+            if res[3] > b.shape[0] + (1 << 16):
+                raise RuntimeError("K4 split: the pool is too small")
+            if mode == 0:
+                _exact(tuple(res[:2].tolist()),
+                       fm.batch_bfs_stats_device_plain(a, b, e, SA_INTV),
+                       f"K4 split {shape}")
+        out[shape] = times
+        say(f"K4 stats split {shape} ranges on {smi}: "
+            + "; ".join(f"{name} {ms:.4f} ms ({work.entries / ms / 1e6:.1f} "
+                        f"G entries/s)" for name, ms in times.items())
+            + f"; {work.entries} entries, {work.segments} samp_sum pairs; "
+              f"K2 reads {K2_SECTORS_PER_S / 1e9:.0f} G sectors/s")
+    return out
+
+
+def parse_ptxas(text: str, demangle=None):
+    """[(kernel, registers, stack frame, spill stores, spill loads)] of
+    ``nvcc -Xptxas -v`` output, one a kernel (bytes); ``demangle`` maps the
+    list of mangled names to readable ones."""
+    rows, props = [], {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            props[name] = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1))))
+    names = [name for name, _ in rows]
+    if demangle and names:
+        names = demangle(names)
+    return [
+        (re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|\(int\)", "",
+                short).split("(")[0], regs, *props.get(name, (0, 0, 0)))
+        for (name, regs), short in zip(rows, names)
+    ]
+
+
+def ptxas_report(source: str = "fm_bfs.cu", say=print):
+    """:func:`parse_ptxas` of ``nvcc -Xptxas -v`` on one kernel source with
+    the library's flags, printed one kernel a line."""
+    run = subprocess.run(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+         os.path.join(kernels.CSRC, source), "-o", os.devnull],
+        capture_output=True, text=True, check=True)
+    filt = os.path.join(os.path.dirname(kernels._nvcc()), "cu++filt")
+
+    def demangle(names):
+        if not os.path.exists(filt):
+            return names
+        return subprocess.run([filt], input="\n".join(names),
+                              capture_output=True, text=True,
+                              check=True).stdout.split("\n")
+
+    out = parse_ptxas(run.stdout + run.stderr, demangle)
+    for short, regs, stack, st, ld in out:
+        say(f"ptxas {source} {short}: {regs} registers, {stack} bytes stack "
+            f"frame, {st} bytes spill stores, {ld} bytes spill loads")
     return out
 
 
@@ -536,6 +709,8 @@ def main(argv=None) -> int:
     p.add_argument("--queries", type=int, default=N_QUERIES)
     p.add_argument("--chunk", type=int, default=CLI_CHUNK)
     p.add_argument("--reps", type=int, default=REPS)
+    p.add_argument("--bfs-only", action="store_true",
+                   help="K4 alone: its split, ptxas report and timings")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     smi = "cpu (host clock)"
@@ -546,18 +721,23 @@ def main(argv=None) -> int:
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[0]
         print(smi, flush=True)
+    say = lambda m: print(m, flush=True)  # noqa: E731
     text = synth_genome(args.n)
     fmi = fm.FMIndex(sa_intv=SA_INTV, lookup_len=0, device=dev).build(text)
     qw, q_rows, rand_rows = query_inputs(fmi, text, args.queries, dev)
-    measure(fmi, qw, q_rows, rand_rows, args.chunk, smi,
-            say=lambda m: print(m, flush=True), reps=args.reps)
+    if not args.bfs_only:
+        measure(fmi, qw, q_rows, rand_rows, args.chunk, smi, say=say,
+                reps=args.reps)
     # K4 on a 32-ordered index of the same text, the BFS route's archives
     bfs = fm.FMIndex(sa_intv=SA_INTV, lookup_len=0, device=dev).build(
         text, sort_len=32)
     beg, end, _ = fm.get_range_packed_device(bfs.arrays, qw, QLEN, 0,
                                              blocks=bfs.blocks)
-    measure_bfs(bfs, beg, end, args.chunk, smi,
-                say=lambda m: print(m, flush=True), reps=args.reps)
+    measure_bfs(bfs, beg, end, args.chunk, smi, say=say, reps=args.reps)
+    if dev.type == "cuda":
+        measure_bfs_split(bfs, beg, end, args.chunk, smi, say=say,
+                          reps=args.reps)
+        ptxas_report(say=say)
     return 0
 
 

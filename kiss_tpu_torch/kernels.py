@@ -57,9 +57,15 @@ LAUNCHES = {
 }
 
 
+# Queries that kernel K4 walked on its spill route (their levels in global
+# scratch, not shared memory), as the kernel reports them, by entry point.
+SPILLED = {"fm_bfs_stats": 0, "fm_bfs_locate": 0}
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SPILLED):
+        for name in counts:
+            counts[name] = 0
 
 
 def count_launch(name: str) -> None:
@@ -145,11 +151,14 @@ _SIGNATURES = {
     ],
     "kt_fm_locate_rows": [_P, _P, _P, _P, _I, _P, _L, _P, _P],
     "kt_fm_locate_stats": [_P, _P, _P, _P, _I, _P, _P, _L, _P, _P],
-    "kt_fm_bfs_stats": [_P, _P, _P, _P, _I, _P, _P, _L, _P, _P],
-    "kt_fm_bfs_count": [_P, _P, _P, _I, _P, _P, _L, _P, _P],
-    "kt_fm_bfs_locate": [
-        _P, _P, _P, _P, _I, _P, _P, _L, _P, _P, _L, _L, _P, _P, _P, _P,
+    "kt_fm_bfs_stats": [_P, _P, _P, _P, _I, _P, _P, _L, _P, _L, _P, _P],
+    "kt_fm_bfs_stats_split": [
+        _I, _P, _P, _P, _P, _I, _P, _P, _L, _P, _L, _P, _P,
     ],
+    "kt_fm_bfs_segments": [
+        _P, _P, _P, _I, _P, _P, _L, _P, _L, _P, _P, _L, _P, _P,
+    ],
+    "kt_fm_bfs_expand": [_P, _P, _P, _L, _L, _P, _P],
     "kt_probe_stream_copy": [_P, _P, _L, _L, _P],
     "kt_probe_copy_grid": [_P, _P, _L, _L, _P],
     "kt_probe_heavy": [_P, _P, _L, _L, _U, _U, _P],

@@ -107,9 +107,10 @@ class FMBlocks(NamedTuple):
     but counts as none).
 
     ``sup`` int64 [N//65536 + 1, 8]: LF(c, 65536 s) = cnt[c] + occ(c,
-    65536 s) for symbols 0-3, the marks before row 65536 s, then three zero
-    columns (64-byte rows). So LF(c, i) is sup[i >> 16, c] plus counts
-    from i's entry alone.
+    65536 s) for symbols 0-3, the marks before row 65536 s, a zero column,
+    then the range BFS kernel's (K4) 32-bit copy of LF(0..2, 65536 s) and
+    of the marks, as four uint32 in the last 16 bytes (64-byte rows). So
+    LF(c, i) is sup[i >> 16, c] plus counts from i's entry alone.
 
     ``samp_sum`` int64 [len(sa_samp) + 1]: the prefix sums of ``sa_samp``
     (samp_sum[k] = sa_samp[0] + ... + sa_samp[k - 1], modulo 2^64), so
@@ -158,6 +159,9 @@ def block_table(idx: FMArrays, sa_intv: int) -> FMBlocks:
     sup = torch.zeros((nsup, 8), dtype=torch.int64, device=dev)
     sup[:, :5] = base
     sup[:, :4] += idx.cnt
+    low = sup[:, [0, 1, 2, 4]] & 0xFFFFFFFF  # K4's words (rows below 2^32)
+    sup[:, 6] = low[:, 0] | (low[:, 1] << 32)
+    sup[:, 7] = low[:, 2] | (low[:, 3] << 32)
     blk = torch.cat(
         [pack.as_u32(words.reshape(nblk, 4)), marks[:, 1:],
          (rel[:, 0] | (rel[:, 1] << 16))[:, None],
@@ -669,9 +673,11 @@ def batch_locate_stats_device(idx: FMArrays, beg: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-# The largest sa_intv kernel K4 takes: its depth-first walk keeps a stack of
-# 3 (sa_intv - 1) + 1 nodes a thread, sized at compile time.
+# The largest sa_intv kernel K4 takes: its level bookkeeping is sized at
+# compile time (csrc/fm_bfs.cu).
 BFS_MAX_INTV = 32
+BFS_TILE = 128  # queries a block of K4 walks together
+_BFS_NODE_BYTES = 9  # a node of K4's pool: two int32 rows, its query (int8)
 
 
 def bfs_locate_device_plain(idx: FMArrays, beg: torch.Tensor,
@@ -756,6 +762,31 @@ def _bfs_kernel_inputs(idx: FMArrays, blocks, sa_intv: int,
             f"kernel K4 takes sa_intv 2 .. {BFS_MAX_INTV}, not {sa_intv}"
         )
     _kernel_inputs(idx, blocks, **extra)
+    if blocks.blk.shape[0] * 64 > 2**32:
+        raise ValueError("kernel K4 holds rows in 32 bits: the index has "
+                         "2^32 rows or more")
+
+
+def bfs_guess(q: int) -> tuple[int, int]:
+    """(segments, pool nodes) a K4 launch of ``q`` ranges is first given:
+    about one segment a range and a few spilled nodes a range on a batch of
+    reads; a launch that needs more says so and runs again."""
+    return 2 * q + 4096, q + 65536
+
+
+def bfs_until_it_fits(run, seg_cap: int, pool_cap: int):
+    """Run a K4 launch until its outputs fit. ``run(seg_cap, pool_cap)``
+    launches with those capacities and returns (its result, the segments
+    it found, the pool nodes its spilled queries need). The pool need
+    depends on the ranges alone; the segments are counted in full even
+    where the writes were dropped, but may be short when the pool did not
+    fit, so a third launch is possible. Returns the result of the launch
+    that fit."""
+    while True:
+        result, segs, pool = run(seg_cap, pool_cap)
+        if segs <= seg_cap and pool <= pool_cap:
+            return result
+        seg_cap, pool_cap = max(seg_cap, segs), max(pool_cap, pool)
 
 
 def bfs_locate_device(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
@@ -765,9 +796,10 @@ def bfs_locate_device(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
     [beg, end) by the range BFS: kiss_tpu's ``bfs_locate_device`` without
     its capacity padding (its ``pos[:total]``), in its order. CUDA tensors
     launch kernel K4's locate entry point (csrc/fm_bfs.cu), which reads
-    ``blocks``, the index's :func:`block_table` (required there); CPU
-    tensors run the plain version. The host reads the output's size once,
-    as the plain version does."""
+    ``blocks``, the index's :func:`block_table` (required there): one walk
+    of each tree writes the segments in order, the host reads their count
+    and the positions' once, and a second kernel writes the positions. CPU
+    tensors run the plain version."""
     _check_ranges(beg, end)
     if beg.device.type == "cpu":
         return bfs_locate_device_plain(idx, beg, end, sa_intv)
@@ -777,34 +809,40 @@ def bfs_locate_device(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
     if q == 0:
         return torch.empty(0, dtype=torch.int64, device=dev)
     tabs = (blocks.blk.data_ptr(), blocks.sup.data_ptr(), idx.pri.data_ptr())
-    # the non-empty segments (row 0) and their rows (row 1) of each
-    # (query, depth), in order
-    counts = torch.empty((2, q * sa_intv), dtype=torch.int64, device=dev)
+    # the report (segments, positions, spilled queries, pool need), the
+    # tile ticket and each tile's look-back status
+    scratch = torch.empty(5 + 5 * -(-q // BFS_TILE), dtype=torch.int64,
+                          device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
         stream = kernels.stream_of(dev)
-        kernels.check(
-            lib.kt_fm_bfs_count(*tabs, sa_intv, beg.data_ptr(),
-                                end.data_ptr(), q, counts.data_ptr(), stream),
-            "kt_fm_bfs_count",
-        )
-        incl = torch.empty_like(counts)
-        for row in range(2):  # 1-D scans: device-wide, unlike a 2-D one's
-            torch.cumsum(counts[row], dim=0, out=incl[row])
-        nseg, total = incl[:, -1].tolist()
+
+        def run(seg_cap, pool_cap):
+            pool = torch.empty(_BFS_NODE_BYTES * pool_cap, dtype=torch.uint8,
+                               device=dev)
+            segs = torch.empty((2, seg_cap), dtype=torch.int64, device=dev)
+            kernels.check(
+                lib.kt_fm_bfs_segments(
+                    *tabs, sa_intv, beg.data_ptr(), end.data_ptr(), q,
+                    pool.data_ptr(), pool_cap, segs[0].data_ptr(),
+                    segs[1].data_ptr(), seg_cap, scratch.data_ptr(), stream,
+                ),
+                "kt_fm_bfs_segments",
+            )
+            nseg, total, spilled, need = scratch[:4].tolist()
+            return (segs, nseg, total, spilled), nseg, need
+
+        segs, nseg, total, spilled = bfs_until_it_fits(run, *bfs_guess(q))
         out = torch.empty(total, dtype=torch.int64, device=dev)
-        seg_off = torch.empty(nseg, dtype=torch.int64, device=dev)
-        seg_start = torch.empty(nseg, dtype=torch.int64, device=dev)
         kernels.check(
-            lib.kt_fm_bfs_locate(
-                *tabs, idx.sa_samp.data_ptr(), sa_intv, beg.data_ptr(),
-                end.data_ptr(), q, counts.data_ptr(), incl.data_ptr(), nseg,
-                total, seg_off.data_ptr(), seg_start.data_ptr(),
-                out.data_ptr(), stream,
+            lib.kt_fm_bfs_expand(
+                idx.sa_samp.data_ptr(), segs[0].data_ptr(),
+                segs[1].data_ptr(), nseg, total, out.data_ptr(), stream,
             ),
-            "kt_fm_bfs_locate",
+            "kt_fm_bfs_expand",
         )
     kernels.count_launch("fm_bfs_locate")
+    kernels.SPILLED["fm_bfs_locate"] += spilled
     return out
 
 
@@ -816,7 +854,7 @@ def batch_bfs_stats_device(idx: FMArrays, beg: torch.Tensor,
     locate path for indexes whose SA order is not known fully sorted.
     The checksum is one int64 sum of the positions, the integer kiss_tpu
     assembles as sum(lo) + (sum(hi) << 16). CUDA tensors launch kernel
-    K4's stats entry point (csrc/fm_bfs.cu), one pass over the queries'
+    K4's stats entry point (csrc/fm_bfs.cu), one walk of the queries'
     trees that reads ``blocks`` (required there) and sums each node's
     positions from ``blocks.samp_sum``; the host waits once, for the two
     integers. CPU tensors run the plain version."""
@@ -824,22 +862,33 @@ def batch_bfs_stats_device(idx: FMArrays, beg: torch.Tensor,
     if beg.device.type == "cpu":
         return batch_bfs_stats_device_plain(idx, beg, end, sa_intv)
     _bfs_kernel_inputs(idx, blocks, sa_intv, beg=beg, end=end)
-    if beg.shape[0] == 0:
+    q = beg.shape[0]
+    if q == 0:
         return 0, 0
-    out = torch.empty(2, dtype=torch.int64, device=beg.device)
+    dev = beg.device
+    out = torch.empty(4, dtype=torch.int64, device=dev)
     lib = kernels.library()
-    with torch.cuda.device(beg.device):
-        kernels.check(
-            lib.kt_fm_bfs_stats(
-                blocks.blk.data_ptr(), blocks.sup.data_ptr(),
-                idx.pri.data_ptr(), blocks.samp_sum.data_ptr(), sa_intv,
-                beg.data_ptr(), end.data_ptr(), beg.shape[0], out.data_ptr(),
-                kernels.stream_of(beg.device),
-            ),
-            "kt_fm_bfs_stats",
-        )
+    with torch.cuda.device(dev):
+        stream = kernels.stream_of(dev)
+
+        def run(_, pool_cap):
+            pool = torch.empty(_BFS_NODE_BYTES * pool_cap, dtype=torch.uint8,
+                               device=dev)
+            kernels.check(
+                lib.kt_fm_bfs_stats(
+                    blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                    idx.pri.data_ptr(), blocks.samp_sum.data_ptr(), sa_intv,
+                    beg.data_ptr(), end.data_ptr(), q, pool.data_ptr(),
+                    pool_cap, out.data_ptr(), stream,
+                ),
+                "kt_fm_bfs_stats",
+            )
+            total, checksum, spilled, need = out.tolist()
+            return (total, checksum, spilled), 0, need
+
+        total, checksum, spilled = bfs_until_it_fits(run, 0, bfs_guess(q)[1])
     kernels.count_launch("fm_bfs_stats")
-    total, checksum = out.tolist()
+    kernels.SPILLED["fm_bfs_stats"] += spilled
     return total, checksum
 
 

@@ -79,13 +79,15 @@ def test_main_rehearses_on_the_cpu(capsys):
                  "as the CLI calls it", "K3 rows -q rows",
                  "K3 rows random rows 400", "K4 fm_bfs_stats chunk 100",
                  "K4 fm_bfs_locate chunk 100", "K4 fm_bfs_stats batch 400",
-                 "K4 fm_bfs_locate batch 400"):
+                 "K4 fm_bfs_locate batch 400", "G/s; K2 131 G sectors/s",
+                 "queries on the spill route"):
         assert what in out, what
 
 
 def test_bfs_work_matches_the_kernels_walk():
-    """The nodes, segments and positions that K4's bound counts are those
-    of the kernel's pruned walk (the CPU model of test_torch_bfs_kernel)."""
+    """The nodes, entries, LF steps, segments and positions that K4's bound
+    counts are those of the kernel's level-by-level walk (the CPU model of
+    test_torch_bfs_kernel, its spill route included)."""
     from tests.test_torch_bfs_kernel import Model
 
     text = oracle.repeat_heavy_dna(3000, unit=40, seed=5)
@@ -94,24 +96,49 @@ def test_bfs_work_matches_the_kernels_walk():
     beg, end, _ = fm.get_range_packed_device_plain(fmi.arrays, qw, fqt.QLEN,
                                                    0)
     model = Model(fmi)
-    nodes = entries = lfs = segments = positions = 0
-    for b, e in zip(beg.tolist(), end.tolist()):
-        stack = [(b, e)] if b < e else []
-        # the node ranges in the walk's order, beside what it yields
-        for d, mb, me in model.walk(b, e):
-            nb, ne = stack.pop()
-            one = ne - nb == 1
-            nodes += 1
-            entries += 1 if one else 2
-            if d < 3:
-                lfs += (nb != int(fmi.arrays.pri)) if one else 8
-                kids = [tuple(int(fm._lf(fmi.arrays, torch.tensor([c]),
-                                         torch.tensor([x]))[0])
-                              for x in (nb, ne))
-                        for c in range(4)]
-                stack += [k for k in reversed(kids) if k[0] < k[1]]
-            segments += me > mb
-            positions += me - mb
-    assert fqt.bfs_work(fmi.arrays, beg, end, 4) == (
-        nodes, entries, lfs, segments, positions)
-    assert positions == int((end - beg).sum()) and entries < 2 * nodes
+    pri = int(fmi.arrays.pri)
+    count = dict(nodes=0, entries=0, lfs=0, segments=0, positions=0)
+
+    def visit(s, j, d, mb, me):
+        nb, ne = int(s["x"][j]), int(s["y"][j])  # the node's rows
+        one = ne - nb == 1
+        count["nodes"] += 1
+        count["entries"] += 1 if one else 2
+        if d < 3:
+            count["lfs"] += (nb != pri) if one else 8
+        count["segments"] += me > mb
+        count["positions"] += me - mb
+
+    report = [0, 0, 0, 0]
+    b, e = beg.numpy(), end.numpy()
+    for t0 in model.tiles(len(b)):
+        for stores in model.warps(b, e, t0, 1 << 20, report):
+            model.walk(stores, visit)
+    assert report[2] > 0  # some of the walk on the spill route
+    assert fqt.bfs_work(fmi.arrays, beg, end, 4) == tuple(count.values())
+    assert count["positions"] == int((end - beg).sum())
+    assert count["entries"] < 2 * count["nodes"]
+
+
+def test_parse_ptxas():
+    """The registers, stack frame and spills of each kernel, from nvcc
+    -Xptxas -v output (mangled names shortened after demangling)."""
+    text = (
+        "ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kv\n"
+        "    384 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 48 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z1jv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1jv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 16 registers\n"
+    )
+    assert fqt.parse_ptxas(text) == [("_Z1kv", 48, 384, 8, 4),
+                                     ("_Z1jv", 16, 0, 0, 0)]
+    names = {"_Z1kv": "void <unnamed>::walk_kernel<(int)8>(Tables)",
+             "_Z1jv": "(anonymous namespace)::expand(long long)"}
+    assert [r[0] for r in fqt.parse_ptxas(
+        text, lambda ns: [names[n] for n in ns])] == ["walk_kernel<8>",
+                                                      "expand"]

@@ -401,6 +401,46 @@ def test_bfs_100k_ranges_match_plain(index_pair):
     _bfs_match_plain(f, {"100k": (beg, end)})
 
 
+def test_bfs_spill_route_on_a_mixed_batch(cuda):
+    """Ranges of a quarter of the SA among 25-mer ranges: the quarters
+    (tree bound 85 > 64 nodes at sa_intv 4) take K4's spill route, the
+    25-mers its shared frontier, and both entry points equal their plain
+    versions; one quarter alone takes the spill route, as its count
+    shows."""
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(70_000, unit=300, seed=4)
+    f = fm.FMIndex(sa_intv=4, device="cuda").build(text, sort_len=32)
+    rng = np.random.default_rng(4)
+    q = text[rng.integers(0, len(text) - 25, 1000)[:, None]
+             + np.arange(25)[None, :]]
+    b, e, _ = f._ranges(np.ascontiguousarray(q, dtype=np.int8))
+    N = f.n_rows
+    at = torch.tensor([3, 300, 301, 999], device="cuda")
+    b[at], e[at] = N // 4, N // 2
+    kernels.reset_launch_counts()
+    _bfs_match_plain(f, {"mixed": (b, e)})
+    assert kernels.SPILLED["fm_bfs_locate"] >= 4
+    assert kernels.SPILLED["fm_bfs_stats"] >= 4
+    kernels.reset_launch_counts()
+    _bfs_match_plain(f, {"a quarter": _ranges([(N // 4, N // 2)])})
+    assert kernels.SPILLED == {"fm_bfs_stats": 1, "fm_bfs_locate": 1}
+
+
+def test_bfs_runs_again_at_the_reported_sizes(cuda):
+    """Eight whole-table ranges at sa_intv 8 need more pool (8 x 21,845
+    nodes) and more segments than the wrappers first give: each entry
+    point runs its kernel again at the reported sizes and equals its plain
+    version."""
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(30_000, unit=300, seed=8)
+    f = fm.FMIndex(sa_intv=8, device="cuda").build(text, sort_len=32)
+    beg, end = _ranges([(0, f.n_rows)] * 8)
+    assert fm.bfs_guess(8)[1] < 8 * 21_845
+    _bfs_match_plain(f, {"8 x whole": (beg, end)})
+
+
 def test_bfs_route_launches_k4(cuda):
     """On a card the BFS route of FMIndex (get_offsets, batch_query_stats)
     launches K4's entry points and not K3's, and answers as the oracle."""
