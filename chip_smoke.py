@@ -93,6 +93,21 @@ exits non-zero and prints no result line):
      the build; K2 timed at the shard's launch shape; before the mesh, K1
      timed at each new launch shape of 7a-7d (external seed batch, round
      segment, general seed);
+  7g. N = 2**31 + 4096 rows on the card, its memory freed before and
+     given back after: a random text of 2**31 + 4095 characters made on
+     the card from a seed; K1 sorts every position's 16-character word
+     (W = 1), timed beside its bound and held to the whole contract of a
+     stable sort (keys not decreasing, a permutation by a bitmap, equal
+     keys in ascending position; against its plain version too where the
+     card holds that); the 16-ordered SA (the 16 suffixes shorter than
+     16 characters put back by the ordering contract) through
+     ``FMIndex.build_rows``, the row-blocked build; 65,536 random 13-mers
+     (inside the BFS contract) through K2 and K4 (stats, and locate of 8
+     patterns), equal to an on-card oracle that never reads the index
+     (the text's 13-mer codes counted, their positions summed) and, on
+     4,096 queries, to the plain versions; the launch counters reset
+     before the sort and before the queries, read after each; the peak
+     CUDA bytes;
   8. the probe path: ``kiss_tpu_torch.experiments.micro_kernels`` and
      ``micro_copy`` through their ``main`` at the probes' own size
      (48,758,784 elements), launch counters reset just before and read
@@ -140,6 +155,14 @@ PROBE_REPS = 50  # launches per timing of a probe kernel
 # out-of-core batch rows small enough that the 48.8M genome's seed takes
 # many batches and its first round (about 5M active rows) several segments
 EXT_BATCH_ROWS = 1 << 21
+# phase 7g: a text of BIG_N characters, N = 2**31 + 4096 rows
+BIG_N = 2**31 + 4095
+BIG_CHUNK = 1 << 28  # positions a step of 7g's tensor code takes at once
+BIG_QUERIES = 65_536
+BIG_QLEN = 13  # inside the BFS contract of a 16-ordered SA at sa_intv 4
+BIG_LOCATED = 8  # patterns 7g locates
+BIG_PLAIN_SAMPLE = 4096  # queries 7g holds against the plain versions
+BIG_PATH = "7g: N = 2**31 + 4096 (K1 sort, build_rows, 13-mer queries)"
 
 KERNELS = {
     "radix_sort_words": (
@@ -996,6 +1019,232 @@ def phase_k1_shapes(torch, smi, err, shapes):
     return rows
 
 
+def _packed_words16(torch, text, N: int):
+    """int32 [1, N]: position p's 16 characters, 2 bits each, big-endian,
+    zero past the text (a uint32 key), made 2**28 positions at a time."""
+    from kiss_tpu_torch.ops import pack
+
+    n = text.shape[0]
+    keys = torch.empty((1, N), dtype=torch.int32, device=text.device)
+    for lo in range(0, N, BIG_CHUNK):
+        hi = min(lo + BIG_CHUNK, N)
+        win = torch.zeros(hi - lo + 15, dtype=torch.int64, device=text.device)
+        m = max(min(n, hi + 15) - lo, 0)
+        win[:m] = text[lo : lo + m]
+        acc = torch.zeros(hi - lo, dtype=torch.int64, device=text.device)
+        for j in range(16):
+            acc |= win[j : j + hi - lo] << (2 * (15 - j))
+        keys[0, lo:hi] = pack.to_u32_bits(acc)
+        del win, acc
+    return keys
+
+
+def _place_short_suffixes(torch, sorted_keys, perm, n: int):
+    """The 16-ordered SA (int32 bits [N]) from K1's stable sort of every
+    row's zero-padded 16-character word: the 16 rows whose suffix holds
+    fewer than 16 characters (positions n - 15 .. n, the sentinel n among
+    them) are taken out and put back by the ordering contract. Such a
+    suffix p comes after every full row whose word is below its zero-padded
+    word w(p) and before the rest (its end sorts below any character); the
+    short ones order by w(p), a shorter one first."""
+    from kiss_tpu_torch.ops import pack
+    from kiss_tpu_torch.ops.suffix_sort import _compact_rows
+
+    N = n + 1
+    short_rows = _compact_rows(perm >= n - 15, 16)
+    pos = perm[short_rows]
+    words = pack.as_u32(sorted_keys[0, short_rows])
+    order = sorted(range(16), key=lambda i: (int(words[i]), -int(pos[i])))
+    below = torch.zeros(16, dtype=torch.int64, device=perm.device)
+    for lo in range(0, N, BIG_CHUNK):  # rows with a word below each w(p)
+        chunk = pack.as_u32(sorted_keys[0, lo : lo + BIG_CHUNK])
+        below += torch.searchsorted(chunk, words)
+        del chunk
+    # the full rows below w(p): all rows below it, less the short ones
+    full_below = below - (words[None, :] < words[:, None]).sum(dim=1)
+    # each short suffix's row, and its position as uint32 bits in int32
+    targets = {}
+    for rank, i in enumerate(order):
+        p = int(pos[i])
+        targets[int(full_below[i]) + rank] = p - (1 << 32) if p >= 2**31 else p
+    # the full rows in K1's order, the short ones taken out, as uint32 bits
+    full = torch.empty(N - 16, dtype=torch.int32, device=perm.device)
+    prev = out = 0
+    for r in sorted(short_rows.tolist()) + [N]:
+        for lo in range(prev, r, BIG_CHUNK):
+            hi = min(lo + BIG_CHUNK, r)
+            full[out : out + hi - lo] = pack.to_u32_bits(perm[lo:hi])
+            out += hi - lo
+        prev = r + 1
+    sa = torch.empty(N, dtype=torch.int32, device=perm.device)
+    src = dst = 0
+    for row in sorted(targets):
+        sa[dst:row] = full[src : src + row - dst]
+        src += row - dst
+        sa[row] = targets[row]
+        dst = row + 1
+    sa[dst:] = full[src:]
+    return sa
+
+
+def phase_big_n(torch, np, kernels, err, smi):
+    """7g: N = 2**31 + 4096 rows on the card. A random text from a seed;
+    K1 sorts every position's 16-character word (W = 1) and is held to the
+    whole stable-sort contract; the 16-ordered SA, its short suffixes put
+    back by the contract, goes through the row-blocked build; 65,536
+    random 13-mers (inside the BFS contract: 13 + 4 - 1 <= 16) through K2
+    and K4, equal to an oracle on the card that never reads the index (the
+    text's 13-mer codes counted and their positions summed) and, on a
+    sample, to the plain versions. Returns ({kernel: launches}, K1's
+    (ms, plain ms, bound ms, bound by) at this shape)."""
+    import gc
+
+    from kiss_tpu_torch.models import fm_index as fm
+    from kiss_tpu_torch.ops import pack
+    from kiss_tpu_torch.ops.radix_sort import radix_sort_words
+    from kiss_tpu_torch.utils.checks import (
+        check_k_sorted_sample,
+        check_stable_sort,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    n, N = BIG_N, BIG_N + 1
+    g = torch.Generator(device=dev).manual_seed(31)
+    text = torch.empty(n, dtype=torch.int8, device=dev)
+    for lo in range(0, n, BIG_CHUNK):
+        hi = min(lo + BIG_CHUNK, n)
+        text[lo:hi] = torch.randint(0, 4, (hi - lo,), dtype=torch.int8,
+                                    device=dev, generator=g)
+    keys = _packed_words16(torch, text, N)
+
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    sorted_keys, perm = radix_sort_words(keys)
+    stop.record()
+    torch.cuda.synchronize()
+    k1_ms = start.elapsed_time(stop)
+    k1_launches = kernels.LAUNCHES["radix_sort_words"]
+    check(k1_launches == 1, f"7g: K1 launched {k1_launches} times")
+    check_stable_sort(keys, sorted_keys, perm)
+    bound = k1_bound(keys)
+    # the plain version: a stable torch.sort of int64 values with int64
+    # indices and their gathers, about 64 bytes a key besides the keys
+    plain_need = 64 * N
+    plain_free = torch.cuda.mem_get_info()[0]
+    plain = (f"K1's plain version needs about {plain_need / 1e9:.0f} GB "
+             f"here, the card has {plain_free / 1e9:.0f} GB free: held by the "
+             f"stable-sort contract alone")
+    if plain_need < 0.9 * plain_free:
+        from kiss_tpu_torch.ops.radix_sort import radix_sort_words_plain
+
+        want = radix_sort_words_plain(keys)
+        err["radix_sort_words"] = max(err["radix_sort_words"],
+                                      exact(perm, want[1]),
+                                      exact(sorted_keys, want[0]))
+        plain = "equal to K1's plain version"
+        del want
+    del keys
+    sa = _place_short_suffixes(torch, sorted_keys, perm, n)
+    del sorted_keys, perm
+    check_k_sorted_sample(text, pack.as_u32(sa), 16, 1_000_000)
+
+    fmi = fm.FMIndex(sa_intv=4, lookup_len=0, device=dev)
+    _, build_s = wall_s(lambda: fmi.build_rows(text, sa, full_sa=False))
+    del sa
+    gc.collect()
+    arrays, blocks = fmi.arrays, fmi.blocks
+
+    # the oracle: every 13-mer of the text as a 26-bit code, counted, and
+    # its positions summed
+    rng = np.random.default_rng(13)
+    qcodes_np = rng.integers(0, 4**BIG_QLEN, BIG_QUERIES)
+    counts = torch.zeros(4**BIG_QLEN, dtype=torch.int64, device=dev)
+    sums = torch.zeros_like(counts)
+    m = n - BIG_QLEN + 1
+    located = BIG_LOCATED
+    pick = torch.from_numpy(qcodes_np[:located]).to(dev)
+    where = [[] for _ in range(located)]
+    for lo in range(0, m, BIG_CHUNK):
+        hi = min(lo + BIG_CHUNK, m)
+        code = torch.zeros(hi - lo, dtype=torch.int64, device=dev)
+        for j in range(BIG_QLEN):
+            code = (code << 2) | text[lo + j : hi + j].to(torch.int64)
+        counts += torch.bincount(code, minlength=4**BIG_QLEN)
+        sums.index_add_(0, code, torch.arange(lo, hi, device=dev))
+        for i in range(located):
+            where[i].append((code == pick[i]).nonzero().flatten() + lo)
+        del code
+    qc = torch.from_numpy(qcodes_np).to(dev)
+    want_counts, want_sums = counts[qc], sums[qc]
+    pats = np.stack([(qcodes_np >> (2 * (BIG_QLEN - 1 - j))) & 3
+                     for j in range(BIG_QLEN)], axis=1).astype(np.int8)
+    qw = fm._packed_queries(pats, dev)
+
+    kernels.reset_launch_counts()
+    beg, end, _ = fm.get_range_packed_device(arrays, qw, BIG_QLEN, 0,
+                                             blocks=blocks)
+    check(torch.equal(end - beg, want_counts),
+          "7g: K2's counts differ from the 13-mer oracle's")
+    stats = fm.batch_bfs_stats_device(arrays, beg, end, 4, blocks=blocks)
+    want = (int(want_counts.sum()), int(want_sums.sum()))
+    check(stats == want, f"7g: K4 stats {stats} != the oracle's {want}")
+    check(fm.bfs_query_stats(arrays, beg, end, 4, blocks=blocks) == want,
+          "7g: the BFS route's stats differ from the oracle's")
+    got = fm.bfs_locate_device(arrays, beg[:located], end[:located], 4,
+                               blocks=blocks)
+    lens = (end[:located] - beg[:located]).tolist()
+    for i, part in enumerate(torch.split(got, lens)):
+        check(torch.equal(part.sort().values, torch.cat(where[i])),
+              f"7g: K4 locate of pattern {i} differs from the oracle's")
+    launches = {name: kernels.LAUNCHES[name] for name in
+                ("fm_backward_search", "fm_bfs_stats", "fm_bfs_locate")}
+    check(all(launches.values()), f"7g: a kernel was not launched: "
+          f"{launches}")
+    # the plain versions on a sample
+    qs = qw[:BIG_PLAIN_SAMPLE]
+    sb, se = beg[:BIG_PLAIN_SAMPLE], end[:BIG_PLAIN_SAMPLE]
+    plain_ranges = fm.get_range_packed_device_plain(arrays, qs, BIG_QLEN, 0)
+    for name, a, b in (("beg", sb, plain_ranges[0]),
+                       ("end", se, plain_ranges[1])):
+        err["fm_backward_search"] = max(err["fm_backward_search"],
+                                        exact(a, b))
+    err["fm_bfs_stats"] = max(err["fm_bfs_stats"], exact(
+        fm.batch_bfs_stats_device(arrays, sb, se, 4, blocks=blocks),
+        fm.batch_bfs_stats_device_plain(arrays, sb, se, 4)))
+    err["fm_bfs_locate"] = max(err["fm_bfs_locate"], exact(
+        got, fm.bfs_locate_device_plain(arrays, beg[:located],
+                                        end[:located], 4)))
+    peak = torch.cuda.max_memory_allocated()
+    del fmi, arrays, blocks, text, counts, sums, where, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_after = torch.cuda.mem_get_info()[0]
+    check(free_after >= free_before - (1 << 28),
+          f"7g: card memory not given back ({free_before} free before, "
+          f"{free_after} after)")
+    say(f"N >= 2**31 on {smi}: N = {N} rows of a random text; K1 (W=1) "
+        f"{k1_ms:.3f} ms, bound {bound[0]:.3f} ({bound[1]}), the whole "
+        f"stable-sort contract exact, {plain}; the 16-ordered SA (its 16 "
+        f"short suffixes put back by the contract) a permutation with "
+        f"1000000 rows in order; build_rows {build_s:.3f} s; "
+        f"{BIG_QUERIES} random {BIG_QLEN}-mers: K2 counts and K4 stats "
+        f"{want} equal the on-card 13-mer oracle, K4 locate of {located} "
+        f"patterns its positions, K2 and K4 equal their plain versions on "
+        f"{BIG_PLAIN_SAMPLE} queries; launches {launches}; peak CUDA bytes "
+        f"{peak}; card free {free_before} bytes before, {free_after} after; "
+        f"phase {time.perf_counter() - t_phase:.3f} s")
+    launches["radix_sort_words"] = k1_launches
+    return launches, (k1_ms, None, *bound)
+
+
 def phase_probe_path(torch, kernels):
     """The probe entry points as a user runs them, counters reset just
     before and read just after."""
@@ -1485,6 +1734,10 @@ def main() -> int:
         torch, np, kernels, fa, text, text_dev, pats, qw, fmi, occ, checksum,
         err, smi)
     k1_rows.update(mesh_k1_rows)
+    big_launches, k1_rows[f"7g W=1 N={BIG_N + 1}"] = phase_big_n(
+        torch, np, kernels, err, smi)
+    for name in BFS_NAMES:
+        bfs_by_path[name][BIG_PATH] = big_launches[name]
 
     # ---- 8. the probe path, then the probes against their plain versions
     launches.update(phase_probe_path(torch, kernels))
@@ -1673,6 +1926,7 @@ def main() -> int:
             "get_suffix_array k=256": general_launches,
             **{name: k1 for name, (_, k1, _, _, _) in mesh_steps.items()
                if k1},
+            BIG_PATH: big_launches["radix_sort_words"],
         },
         "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
                           "bound_by": by}
@@ -1685,6 +1939,7 @@ def main() -> int:
             "main path": launches["fm_backward_search"],
             **{name: k2 for name, (_, _, k2, _, _) in mesh_steps.items()
                if k2},
+            BIG_PATH: big_launches["fm_backward_search"],
         },
         "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
                           "bound_by": by}

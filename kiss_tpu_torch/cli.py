@@ -403,9 +403,11 @@ def _single_query(engine, seq, pattern: str, headn: int) -> None:
     iq = codec.fold_to_acgt(codec.to_istring(pattern))
     beg, end, _ = engine.get_range(iq)
     positions = engine.get_offsets(beg, end)
+    # the range's rows, as kiss_tpu counts them (outside the range BFS's
+    # contract the BFS may give another number of positions)
     timing.log_info(
         "query = %s found %d times",
-        codec.to_string(iq), len(positions),
+        codec.to_string(iq), end - beg,
     )
     for i in range(min(headn, len(positions))):
         loc = int(positions[i])

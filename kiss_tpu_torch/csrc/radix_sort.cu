@@ -20,7 +20,9 @@
 //     with no pass left is never touched (packed words often have constant
 //     high bytes). The same counts are each pass's digit totals;
 //   - words are sorted least significant first; only the word being sorted
-//     and a 32-bit index travel through its passes;
+//     and a 32-bit index travel through its passes. The index, every digit
+//     count, the tiles' look-back values and every slot are unsigned 32-bit,
+//     so a sort takes up to 2^32 - 1 keys (the wrapper refuses more);
 //   - a pass is ONE kernel (onesweep_pass_kernel). A tile of 8192
 //     keys ranks its keys, counts its 256 digits on the way, and learns how
 //     many keys of each digit the tiles before it hold by a decoupled
@@ -203,9 +205,9 @@ __device__ __forceinline__ int staged(int slot) { return slot + (slot >> 5); }
 template <int THREADS, int ITEMS, int BLOCKS>
 __global__ void __launch_bounds__(THREADS, BLOCKS)
 onesweep_pass_kernel(const uint32_t* __restrict__ keys_in,
-                     const int* __restrict__ idx_in,
+                     const uint32_t* __restrict__ idx_in,
                      uint32_t* __restrict__ keys_out,
-                     int* __restrict__ idx_out, long long n, int shift,
+                     uint32_t* __restrict__ idx_out, long long n, int shift,
                      const unsigned int* __restrict__ digit_totals,
                      unsigned long long* status, unsigned int* ticket,
                      unsigned long long epoch,
@@ -217,7 +219,7 @@ onesweep_pass_kernel(const uint32_t* __restrict__ keys_in,
   extern __shared__ __align__(16) uint32_t smem[];
   constexpr int STAGE = TILE + TILE / 32;
   uint32_t* s_key = smem;
-  int* s_idx = (int*)(smem + STAGE);
+  uint32_t* s_idx = smem + STAGE;
   unsigned int(*wcnt)[kBins] = (unsigned int(*)[kBins])(smem + 2 * STAGE);
   __shared__ unsigned int run_base[kBins];  // global slot - tile slot
   __shared__ unsigned int wsum_local[kBins / 32];
@@ -319,7 +321,7 @@ onesweep_pass_kernel(const uint32_t* __restrict__ keys_in,
     if (i < n) {
       const unsigned int slot = wcnt[warp][(key[r] >> shift) & 0xFFu] + rank[r];
       s_key[staged(slot)] = key[r];
-      s_idx[staged(slot)] = idx_in ? idx_in[i] : (int)i;
+      s_idx[staged(slot)] = idx_in ? idx_in[i] : (uint32_t)i;
     }
   }
   __syncthreads();
@@ -344,7 +346,7 @@ onesweep_pass_kernel(const uint32_t* __restrict__ keys_in,
 #pragma unroll 1
   for (int b = 0; b < ITEMS; b += kBatch) {
     uint32_t word[kBatch];
-    int id[kBatch];
+    uint32_t id[kBatch];
     unsigned int pos[kBatch];
 #pragma unroll
     for (int q = 0; q < kBatch; ++q) {
@@ -373,7 +375,7 @@ onesweep_pass_kernel(const uint32_t* __restrict__ keys_in,
 // constant word).
 __global__ void gather_words_kernel(const uint32_t* __restrict__ src,
                                     int nrows, long long n,
-                                    const int* __restrict__ idx,
+                                    const uint32_t* __restrict__ idx,
                                     unsigned int gather_mask,
                                     unsigned int skip_mask,
                                     const uint32_t* __restrict__ top_sorted,
@@ -415,7 +417,8 @@ __global__ void interleave_rows_kernel(const uint32_t* __restrict__ src,
 
 // dst[rq][j] = rows4[idx[j]].q for the rows of interleave_rows_kernel
 __global__ void gather_rows_kernel(const uint4* __restrict__ rows4,
-                                   long long n, const int* __restrict__ idx,
+                                   long long n,
+                                   const uint32_t* __restrict__ idx,
                                    Rows4 rows, uint32_t* __restrict__ dst) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n;
@@ -459,8 +462,8 @@ int launch_pass(const void* keys_in, const void* idx_in, void* keys_out,
   }
   const unsigned int tiles = (unsigned int)((n + kPassTile - 1) / kPassTile);
   kernel<<<tiles, kPassThreads, bytes, s>>>(
-      (const uint32_t*)keys_in, (const int*)idx_in, (uint32_t*)keys_out,
-      (int*)idx_out, n, shift, (const unsigned int*)digit_totals,
+      (const uint32_t*)keys_in, (const uint32_t*)idx_in, (uint32_t*)keys_out,
+      (uint32_t*)idx_out, n, shift, (const unsigned int*)digit_totals,
       (unsigned long long*)status, (unsigned int*)ticket,
       (unsigned long long)epoch, (const uint32_t*)next_word);
   return (int)cudaGetLastError();
@@ -490,9 +493,9 @@ extern "C" int kt_radix_digit_counts(const void* keys, int nwords, long long n,
 // with it.
 extern "C" int kt_radix_tile_keys() { return kPassTile; }
 
-// One stable pass on byte (shift / 8) of a single key word carrying a
-// 32-bit index, in one kernel. idx_in may be null (the identity).
-// digit_totals: the 256 digit counts of the word's byte (from
+// One stable pass on byte (shift / 8) of a single key word carrying an
+// unsigned 32-bit index (n < 2^32), in one kernel. idx_in may be null (the
+// identity). digit_totals: the 256 digit counts of the word's byte (from
 // kt_radix_digit_counts). status: 256 64-bit words a tile, zeroed once
 // before a sort's first pass; ticket: a 32-bit zero that no other pass
 // uses; epoch: the pass's number within the sort, from 1. next_word, when
@@ -522,7 +525,7 @@ extern "C" int kt_gather_words(const void* src, int nrows, long long n,
   if (blocks > 65536) blocks = 65536;
   if (blocks > 0) {
     gather_words_kernel<<<(unsigned int)blocks, 256, 0, s>>>(
-        (const uint32_t*)src, nrows, n, (const int*)idx, gather_mask,
+        (const uint32_t*)src, nrows, n, (const uint32_t*)idx, gather_mask,
         skip_mask, (const uint32_t*)top_sorted, top_row, (uint32_t*)dst);
   }
   return (int)cudaGetLastError();
@@ -542,7 +545,7 @@ extern "C" int kt_gather_rows4(const void* src, long long n, const void* idx,
     interleave_rows_kernel<<<(unsigned int)blocks, 256, 0, s>>>(
         (const uint32_t*)src, n, rows, (uint4*)rows4);
     gather_rows_kernel<<<(unsigned int)blocks, 256, 0, s>>>(
-        (const uint4*)rows4, n, (const int*)idx, rows, (uint32_t*)dst);
+        (const uint4*)rows4, n, (const uint32_t*)idx, rows, (uint32_t*)dst);
   }
   return (int)cudaGetLastError();
 }

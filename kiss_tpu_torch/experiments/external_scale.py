@@ -52,7 +52,7 @@ OVER = 1.02  # the text's length over the in-core capacity
 K = 256  # the k-order of the sort
 
 
-def _host_memory() -> dict:
+def host_memory() -> dict:
     """MemTotal and MemAvailable of /proc/meminfo, in bytes."""
     out = {}
     with open("/proc/meminfo") as f:
@@ -82,7 +82,7 @@ def main(argv=None) -> int:
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    mem = _host_memory()
+    mem = host_memory()
     capacity = cli.in_core_capacity_chars(dev)
     n = args.n or int(capacity * OVER) + 1
     fits = mem["MemAvailable"] // HOST_BYTES_PER_CHAR

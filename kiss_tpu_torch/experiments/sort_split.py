@@ -78,7 +78,7 @@ def digit_passes(keys) -> int:
 
     W, n = keys.shape
     if keys.is_cuda:
-        counts = digit_counts_cuda(keys).cpu().numpy()
+        counts = digit_counts_cuda(keys).cpu().numpy().view(np.uint32)
     else:  # little-endian bytes of each word: byte 0 least significant
         b = np.ascontiguousarray(keys.numpy()).view(np.uint8).reshape(W, n, 4)
         counts = np.array([[np.bincount(b[w, :, j], minlength=256)

@@ -288,6 +288,125 @@ def build_index_device(text: torch.Tensor, sa: torch.Tensor, sa_intv: int):
     )
 
 
+# SA rows a block of build_index_rows uploads: 2**26, about 2.5 GB of the
+# block's temporaries on the card
+BUILD_BLOCK_ROWS = 1 << 26
+
+
+def _sa_rows(sa, lo: int, hi: int, device) -> torch.Tensor:
+    """Rows [lo, hi) of a suffix array given as a numpy array or a tensor
+    (uint32 values: uint32 or int32 bits; or int64), as int64 on
+    ``device``."""
+    x = sa[lo:hi]
+    if isinstance(x, np.ndarray):
+        if x.dtype.itemsize == 4:
+            x = torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64))
+    x = x.to(device)
+    return x if x.dtype == torch.int64 else pack.as_u32(x)
+
+
+def build_index_rows(text: torch.Tensor, sa, sa_intv: int = 4,
+                     block_rows: int = BUILD_BLOCK_ROWS) -> FMArrays:
+    """The index of ``text`` (int8 [n], on the device that builds) and its
+    suffix array ``sa`` (N = n + 1 entries, uint32 values: a host numpy
+    array as the out-of-core sorter returns it, or a tensor, also on the
+    card), built ``block_rows`` SA rows at a time. Equal to
+    :func:`build_index_device` (the same canonical tables, and so the same
+    ``.fmi`` bytes); where that build holds several int64 arrays of N rows
+    at once (about 330 GB at N = 3.1 G), this one holds the text, one
+    block's temporaries and the tables it fills.
+
+    A block's rows are uploaded, their BWT symbols gathered from the text
+    (``text[sa - 1]``) and their marks made; the rows up to the last
+    256-row boundary become table rows by the blocks of the mesh build
+    (:func:`kiss_tpu_torch.parallel.fm_build.block_counts` and
+    ``block_tables``), each block's carrying what the rows before it
+    counted: each symbol's occurrences (occ1's offset, and ``cnt`` at the
+    end), the marks (b_occ's offset and the sampled SA's next slot) and the
+    sentinel's row. A block's last rows short of the boundary wait for the
+    next block, so any ``block_rows`` gives the same tables. The last rows
+    are padded to a multiple of 256 past row N (symbol 0, SA 1: never the
+    sentinel, never marked) and the tables cut to the canonical shapes.
+    Returns ``FMArrays`` with ``lf_tab`` and ``b_tab`` and the lookup
+    [0, N], on ``text``'s device."""
+    from kiss_tpu_torch.parallel import fm_build
+
+    n = text.shape[0]
+    N = n + 1
+    dev = text.device
+    if len(sa) != N:
+        raise ValueError(f"sa has {len(sa)} rows; a text of {n} has {N}")
+    if block_rows < 1:
+        raise ValueError("block_rows must be at least 1")
+    P = (N // OCC1_INTV + 1) * OCC1_INTV  # rows with the pads: row N's too
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    tabs = {"bwt_words": empty(P // 16, torch.int32),
+            "occ1": empty((P // OCC1_INTV, 4), torch.int64),
+            "occ2": empty((P // OCC2_INTV, 4), torch.int32),
+            "lf_tab": empty((P // OCC2_INTV, 5), torch.int32)}
+    if sa_intv == 1:
+        for name, shape, dtype in (("b_words", P // 32, torch.int32),
+                                   ("b_occ", P // B_OCC_INTV, torch.int64),
+                                   ("b_tab", (P // B_OCC_INTV, 3),
+                                    torch.int32)):
+            tabs[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        sa_samp = empty(N, torch.int64)
+    else:
+        tabs.update(b_words=empty(P // 32, torch.int32),
+                    b_occ=empty(P // B_OCC_INTV, torch.int64),
+                    b_tab=empty((P // B_OCC_INTV, 3), torch.int32))
+        sa_samp = empty(-(-N // sa_intv), torch.int64)
+    occ_off = torch.zeros(4, dtype=torch.int64, device=dev)
+    pri = torch.zeros((), dtype=torch.int64, device=dev)
+    marks_before = 0  # the sampled SA's next slot
+    row0 = 0  # the first row not yet in the tables
+    held_sa = torch.empty(0, dtype=torch.int64, device=dev)
+    held_bwt = torch.empty(0, dtype=torch.int8, device=dev)
+    for lo in range(0, N, block_rows):
+        hi = min(lo + block_rows, N)
+        rows_sa = _sa_rows(sa, lo, hi, dev)
+        bwt = torch.where(rows_sa == 0, 0,
+                          text[torch.clamp(rows_sa - 1, min=0)])
+        rows_sa = torch.cat([held_sa, rows_sa])
+        bwt = torch.cat([held_bwt, bwt])
+        if hi == N:
+            pad = P - row0 - rows_sa.shape[0]
+            rows_sa = torch.cat([rows_sa, rows_sa.new_ones(pad)])
+            bwt = torch.cat([bwt, bwt.new_zeros(pad)])
+        take = rows_sa.shape[0] // OCC1_INTV * OCC1_INTV
+        held_sa, held_bwt = rows_sa[take:], bwt[take:]
+        if take == 0:
+            continue
+        rows_sa, bwt = rows_sa[:take], bwt[:take]
+        counts = fm_build.block_counts(row0, N, bwt, rows_sa, sa_intv)
+        block = fm_build.block_tables(counts, occ_off, marks_before)
+        block["bwt_words"] = counts.words
+        for name, x in block.items():
+            step = P // tabs[name].shape[0]  # rows a table row spans
+            tabs[name][row0 // step : (row0 + take) // step] = x
+        occ_off += counts.c16.sum(dim=0)
+        pri += counts.pri
+        if sa_intv == 1:
+            m = min(take, N - row0)
+            sa_samp[row0 : row0 + m] = rows_sa[:m]
+        else:
+            picked = rows_sa[counts.marks]
+            sa_samp[marks_before : marks_before + picked.shape[0]] = picked
+            marks_before += picked.shape[0]
+        row0 += take
+        del counts, block, rows_sa, bwt
+    cnt = torch.cumsum(occ_off, dim=0) - occ_off + 1
+    lookup = torch.tensor([0, N], dtype=torch.int64, device=dev)
+    return fm_build.trim_canonical(
+        FMArrays(cnt=cnt, pri=pri, sa_samp=sa_samp, lookup=lookup, **tabs),
+        N, sa_intv)
+
+
 def _fuse_lf_tab(occ1, occ2, bwt_words) -> torch.Tensor:
     """lf_tab[j] = [absolute per-symbol counts before 16-block j
     (occ1[j // 16] + occ2[j], 4 cols), packed BWT word j], as uint32 bits:
@@ -849,24 +968,50 @@ def bfs_locate_device(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
 def batch_bfs_stats_device(idx: FMArrays, beg: torch.Tensor,
                            end: torch.Tensor, sa_intv: int, *,
                            blocks: FMBlocks | None = None):
-    """(total occurrences, location checksum) like
-    :func:`batch_locate_stats_device`, but via the range BFS -- the
-    locate path for indexes whose SA order is not known fully sorted.
-    The checksum is one int64 sum of the positions, the integer kiss_tpu
-    assembles as sum(lo) + (sum(hi) << 16). CUDA tensors launch kernel
-    K4's stats entry point (csrc/fm_bfs.cu), one walk of the queries'
-    trees that reads ``blocks`` (required there) and sums each node's
-    positions from ``blocks.samp_sum``; the host waits once, for the two
-    integers. CPU tensors run the plain version."""
+    """(positions emitted, location checksum) of the range BFS of the row
+    ranges [beg, end) -- the locate path for indexes whose SA order is not
+    known fully sorted. Inside the BFS contract (k >= sa_intv - 1 + the
+    pattern length) the count is sum(end - beg), like
+    :func:`batch_locate_stats_device`'s; :func:`bfs_query_stats` reports
+    that sum in any case. The checksum is one int64 sum of the positions,
+    the integer kiss_tpu assembles as sum(lo) + (sum(hi) << 16). CUDA
+    tensors launch kernel K4's stats entry point (csrc/fm_bfs.cu), one walk
+    of the queries' trees that reads ``blocks`` (required there) and sums
+    each node's positions from ``blocks.samp_sum``; the host waits once,
+    for the integers. CPU tensors run the plain version."""
+    emitted, checksum, _ = _bfs_stats(idx, beg, end, sa_intv, blocks)
+    return emitted, checksum
+
+
+def bfs_query_stats(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
+                    sa_intv: int, *, blocks: FMBlocks | None = None):
+    """(total occurrences, location checksum) of a query batch on the BFS
+    route, as kiss_tpu's ``batch_query_stats`` reports them: the total is
+    the ranges' rows, sum(end - beg) (outside the BFS contract the BFS
+    emits another number of positions), the checksum the BFS's. On a card
+    the sum comes back in the kernel's one download."""
+    _, checksum, rows = _bfs_stats(idx, beg, end, sa_intv, blocks)
+    return rows, checksum
+
+
+def _bfs_stats(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
+               sa_intv: int, blocks):
+    """(positions emitted, checksum, sum(end - beg)) by kernel K4's stats
+    entry point, or its plain version on CPU tensors."""
     _check_ranges(beg, end)
     if beg.device.type == "cpu":
-        return batch_bfs_stats_device_plain(idx, beg, end, sa_intv)
+        emitted, checksum = batch_bfs_stats_device_plain(idx, beg, end,
+                                                         sa_intv)
+        return emitted, checksum, int((end - beg).sum())
     _bfs_kernel_inputs(idx, blocks, sa_intv, beg=beg, end=end)
     q = beg.shape[0]
     if q == 0:
-        return 0, 0
+        return 0, 0, 0
     dev = beg.device
-    out = torch.empty(4, dtype=torch.int64, device=dev)
+    # the kernel's report (total, checksum, spilled, pool need), then the
+    # ranges' rows, summed here before the launch
+    out = torch.empty(5, dtype=torch.int64, device=dev)
+    out[4] = (end - beg).sum()
     lib = kernels.library()
     with torch.cuda.device(dev):
         stream = kernels.stream_of(dev)
@@ -883,13 +1028,14 @@ def batch_bfs_stats_device(idx: FMArrays, beg: torch.Tensor,
                 ),
                 "kt_fm_bfs_stats",
             )
-            total, checksum, spilled, need = out.tolist()
-            return (total, checksum, spilled), 0, need
+            total, checksum, spilled, need, rows = out.tolist()
+            return (total, checksum, spilled, rows), 0, need
 
-        total, checksum, spilled = bfs_until_it_fits(run, 0, bfs_guess(q)[1])
+        total, checksum, spilled, rows = bfs_until_it_fits(
+            run, 0, bfs_guess(q)[1])
     kernels.count_launch("fm_bfs_stats")
     kernels.SPILLED["fm_bfs_stats"] += spilled
-    return total, checksum
+    return total, checksum, rows
 
 
 # ---------------------------------------------------------------------------
@@ -1068,6 +1214,28 @@ class FMIndex:
         self._build_lookup()
         return self
 
+    def build_rows(self, ref, sa, *, full_sa: bool,
+                   block_rows: int = BUILD_BLOCK_ROWS) -> "FMIndex":
+        """Build from int8 text (numpy or a tensor) and its suffix array,
+        ``block_rows`` SA rows at a time (:func:`build_index_rows`): the
+        text goes to the index's device, the SA (uint32 values, as the
+        out-of-core sorter returns it) may stay on the host. ``full_sa``
+        says whether the SA is fully sorted (a k-ordered one locates by
+        the range BFS). Same tables as :meth:`build` on the same SA."""
+        dev = self._dev
+        if not isinstance(ref, torch.Tensor):
+            ref = torch.from_numpy(np.ascontiguousarray(ref, dtype=np.int8))
+        text = ref.to(dev)
+        with timing.stage("fmindex build (rows in blocks)") as out:
+            arrays = build_index_rows(text, sa, self.sa_intv, block_rows)
+            self.blocks = block_table(arrays, self.sa_intv)
+            out["block_on"] = self.blocks
+        self.arrays = arrays
+        self.n_rows = text.shape[0] + 1
+        self.full_sa = full_sa
+        self._build_lookup()
+        return self
+
     def _build_lookup(self) -> None:
         """Vectorized build_lookup (reference: fm_index.hpp:237-269): one
         batched backward search of every length-L seed, generated on the
@@ -1190,8 +1358,8 @@ class FMIndex:
             return 0, 0
         beg, end, _ = self._ranges(queries)
         if self._routes_to_bfs():
-            return batch_bfs_stats_device(self.arrays, beg, end, self.sa_intv,
-                                          blocks=self.blocks)
+            return bfs_query_stats(self.arrays, beg, end, self.sa_intv,
+                                   blocks=self.blocks)
         return batch_locate_stats_device(self.arrays, beg, end, self.sa_intv,
                                          blocks=self.blocks)
 

@@ -49,8 +49,11 @@ GENERAL = Alphabet(char_bits=10, chars_per_word=3)
 
 def as_u32(x: torch.Tensor) -> torch.Tensor:
     """int64 view of uint32 bits: an int32 tensor's bits, or an int64
-    tensor already holding values below 2**32, widened and masked."""
-    return x.to(torch.int64) & U32_MASK
+    tensor already holding values below 2**32, widened and masked (the
+    widened copy is masked in place: one int64 tensor at the peak)."""
+    if x.dtype == torch.int64:
+        return x & U32_MASK
+    return x.to(torch.int64).bitwise_and_(U32_MASK)
 
 
 def to_u32_bits(x: torch.Tensor) -> torch.Tensor:

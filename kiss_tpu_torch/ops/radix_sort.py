@@ -4,7 +4,8 @@ Replaces ``lax.sort(words, num_keys=W)`` at the suffix sort's call sites
 (``kiss_tpu/ops/suffix_sort.py:334``, ``:389``, ``:469``, ``:521``).
 Input: W <= 9 key words of 32 unsigned bits as an int32 tensor [W, N],
 word 0 most significant (the layout ``suffix_sort._pack_fields``
-builds). Output: the words in sorted order and the permutation (int64):
+builds), N < 2**32 keys (``kiss_tpu``'s uint32 positions reach that far).
+Output: the words in sorted order and the permutation (int64):
 ``sorted[:, j] == keys[:, perm[j]]``. The sort is stable: equal keys keep
 their input order, which the tail refinement relies on for its payload.
 
@@ -24,6 +25,7 @@ from kiss_tpu_torch import kernels
 from kiss_tpu_torch.ops.pack import as_u32
 
 MAX_WORDS = 9
+MAX_KEYS = 2**32 - 1  # the kernel's index and counts are unsigned 32-bit
 _STATUS_SPARE = 64  # 64-bit slots after the tile status: a ticket a pass
 
 
@@ -44,7 +46,9 @@ def pass_plan(counts, n: int) -> list:
     of word ``w`` is ``d``). A byte whose keys all share one digit needs
     no pass; a word with no pass left is never touched. Words go least
     significant (last) first, bytes low to high. An empty plan means the
-    keys are all equal and the sort is the identity."""
+    keys are all equal and the sort is the identity. The counts are
+    unsigned (a count of 2**31 or more read from int32 storage is given as
+    uint32)."""
     counts = np.asarray(counts)
     W = counts.shape[0]
     if n == 0:
@@ -81,8 +85,8 @@ def radix_sort_words(keys: torch.Tensor):
     W, N = keys.shape
     if not 1 <= W <= MAX_WORDS:
         raise ValueError(f"radix_sort_words takes 1..{MAX_WORDS} words, got {W}")
-    if N >= 2**31:
-        raise ValueError(f"radix_sort_words takes N < 2**31 keys, got {N}")
+    if N > MAX_KEYS:
+        raise ValueError(f"radix_sort_words takes N < 2**32 keys, got {N}")
     if keys.device.type == "cpu":
         return radix_sort_words_plain(keys)
     if keys.device.type != "cuda":
@@ -140,12 +144,13 @@ def _radix_sort_words_cuda(keys: torch.Tensor):
     stream = kernels.stream_of(dev)
     counts = digit_counts_cuda(keys)
     kernels.count_launch("radix_sort_words")
-    plan = pass_plan(counts.cpu().numpy(), N)
+    plan = pass_plan(counts.cpu().numpy().view(np.uint32), N)
     if not plan:
         return keys.clone(), torch.arange(N, dtype=torch.int64, device=dev)
     tile = lib.kt_radix_tile_keys()
     tiles = -(-N // tile)
-    # per (tile, digit) status words, then a ticket counter for each pass
+    # per (tile, digit) status words, then a ticket counter for each pass;
+    # the index buffers hold uint32 bits (N may reach 2**32 - 1)
     status = torch.zeros(tiles * 256 + _STATUS_SPARE, dtype=torch.int64,
                          device=dev)
     key_bufs = [torch.empty(N, dtype=torch.int32, device=dev)
@@ -198,4 +203,5 @@ def _radix_sort_words_cuda(keys: torch.Tensor):
                 "kt_gather_rows4",
             )
         del rows4  # before the 64-bit permutation is made
-    return out, src_i.to(torch.int64)
+    del src_k
+    return out, as_u32(src_i)

@@ -403,15 +403,29 @@ def _active_rows_of(sa, rank):
     return active, int(active.sum())
 
 
+# flags one nonzero call of _compact_rows reads: each call's input stays
+# below 2**31 elements, which not every PyTorch's CUDA nonzero takes (the
+# counterpart of kiss_tpu's two-level branch at N >= 2**31 - 2**16)
+_COMPACT_CHUNK = 1 << 30
+
+
 def _compact_rows(active, capacity: int):
     """Ascending active row ids zero-filled to ``capacity`` (the dataflow
     form of kISS-2's compact, reference: kiss2_core.hpp:464-536). Fill
     entries alias row 0 -- the sentinel row, whose rank 1 is the global
     minimum, so the refinement sort parks them at the front and their
-    writes re-store the unchanged sentinel."""
-    ids = torch.nonzero(active).flatten()[:capacity]
+    writes re-store the unchanged sentinel. The flags are read in chunks
+    of ``_COMPACT_CHUNK``, each chunk's ids offset by its start, until
+    ``capacity`` ids are found."""
     rows = torch.zeros(capacity, dtype=torch.int64, device=active.device)
-    rows[: ids.shape[0]] = ids
+    found = 0
+    for lo in range(0, active.shape[0], _COMPACT_CHUNK):
+        if found == capacity:
+            break
+        ids = torch.nonzero(active[lo : lo + _COMPACT_CHUNK]).flatten()
+        ids = ids[: capacity - found] + lo
+        rows[found : found + ids.shape[0]] = ids
+        found += ids.shape[0]
     return rows
 
 

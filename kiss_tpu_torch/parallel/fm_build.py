@@ -70,58 +70,96 @@ class ShardedTables(NamedTuple):
 _ROW_TABLES = ShardedTables._fields[:8]
 
 
+class BlockCounts(NamedTuple):
+    """What the tables of one block of rows are made from
+    (:func:`block_counts`)."""
+
+    words: torch.Tensor  # int32 bits [B / 16]: the BWT, 16 dibits a word
+    c16: torch.Tensor  # int64 [B / 16, 4]: each 16-row block's symbols
+    marks: torch.Tensor | None  # bool [B]: sampled rows (None: sa_intv 1)
+    pri: torch.Tensor  # int64 scalar: the sentinel's row if here, else 0
+
+
+def block_counts(row0: int, N: int, bwt: torch.Tensor, sa: torch.Tensor,
+                 sa_intv: int) -> BlockCounts:
+    """The counts of the rows [row0, row0 + B) of an index of N rows from
+    their BWT symbols and SA entries (int8 and int64 [B], on one device;
+    row0 and B multiples of 256, so every occ2 block, mark word and b_occ
+    block lies in one block of rows). Rows from N on are pads: BWT symbol
+    0, SA 1 (never the sentinel, never marked)."""
+    dev = bwt.device
+    gidx = row0 + torch.arange(bwt.shape[0], dtype=torch.int64, device=dev)
+    words = pack.pack_dibits_u32(bwt)
+    starts = (torch.arange(words.shape[0], dtype=torch.int64, device=dev)
+              * fm.OCC2_INTV + row0)
+    cut = torch.clamp(N - torch.clamp(starts, max=N), 0, fm.OCC2_INTV)
+    c16 = torch.stack(
+        [pack.count_symbol_prefix(words, c, cut) for c in range(4)], dim=1)
+    # the sentinel row packs as symbol 0 but counts as none
+    is_pri = (gidx < N) & (sa == 0)
+    c16[:, 0] -= is_pri.reshape(-1, fm.OCC2_INTV).sum(dim=1)
+    marks = None if sa_intv == 1 else (gidx < N) & (sa % sa_intv == 0)
+    return BlockCounts(words, c16, marks, torch.where(is_pri, gidx, 0).sum())
+
+
+def block_tables(counts: BlockCounts, occ_off, mark_off) -> dict:
+    """The table rows of one block of rows (occ1, occ2, lf_tab and, unless
+    the index samples every row, b_words, b_occ and b_tab; the fields of
+    :class:`ShardedTables`) from its :func:`block_counts`, given what the
+    rows before it carry: each symbol's count (``occ_off``, int64 [4]) and
+    the marks (``mark_off``)."""
+    per_sup = fm.OCC1_INTV // fm.OCC2_INTV
+    g = counts.c16.reshape(-1, per_sup, 4)
+    sup_tot = g.sum(dim=1)
+    # occ2: exclusive cumsum within each 256-row superblock; occ1: of the
+    # superblock totals, offset by the rows before
+    occ2 = (torch.cumsum(g, dim=1) - g).reshape(-1, 4)
+    occ1 = torch.cumsum(sup_tot, dim=0) - sup_tot + occ_off
+    lf = torch.cat([torch.repeat_interleave(occ1, per_sup, dim=0) + occ2,
+                    pack.as_u32(counts.words)[:, None]], dim=1)
+    out = {"occ1": occ1, "occ2": occ2.to(torch.int32),
+           "lf_tab": pack.to_u32_bits(lf)}
+    if counts.marks is not None:
+        b = counts.marks
+        shifts = torch.arange(32, dtype=torch.int64, device=b.device)
+        b_words = (b.reshape(-1, 32).to(torch.int64) << shifts).sum(dim=1)
+        c64 = b.reshape(-1, fm.B_OCC_INTV).sum(dim=1)
+        b_occ = torch.cumsum(c64, dim=0) - c64 + mark_off
+        out.update(b_words=pack.to_u32_bits(b_words), b_occ=b_occ,
+                   b_tab=pack.to_u32_bits(torch.stack(
+                       [b_occ, b_words[0::2], b_words[1::2]], dim=1)))
+    return out
+
+
 def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
     """Blocks of the BWT symbols and the SA (one each a local shard) ->
     each shard's tables (a dict of lists over the local shards: words,
     occ1, occ2, lf_tab, b_words, b_occ, b_tab, samp_key) and the global
-    ``cnt`` and ``pri`` on the lead device."""
+    ``cnt`` and ``pri`` on the lead device. The shards' totals are
+    exchanged for the offsets each block's tables carry."""
     blk = bwt_blocks[0].shape[0]
-    t = {name: [] for name in ("words", "c16", "gidx", "valid", "is_pri")}
-    for s, bwt, sa in zip(mesh.local, bwt_blocks, sa_blocks):
-        dev = bwt.device
-        gidx = s * blk + torch.arange(blk, dtype=torch.int64, device=dev)
-        valid = gidx < N
-        words = pack.pack_dibits_u32(bwt)
-        starts = (torch.arange(words.shape[0], dtype=torch.int64, device=dev)
-                  * fm.OCC2_INTV + s * blk)
-        cut = torch.clamp(N - torch.clamp(starts, max=N), 0, fm.OCC2_INTV)
-        c16 = torch.stack(
-            [pack.count_symbol_prefix(words, c, cut) for c in range(4)],
-            dim=1,
-        )
-        # the sentinel row packs as symbol 0 but counts as none
-        is_pri = valid & (sa == 0)
-        c16[:, 0] -= is_pri.reshape(-1, fm.OCC2_INTV).sum(dim=1)
-        for name, x in (("words", words), ("c16", c16), ("gidx", gidx),
-                        ("valid", valid), ("is_pri", is_pri)):
-            t[name].append(x)
-    pri = mesh.psum([torch.where(p, g, 0).sum()
-                     for p, g in zip(t["is_pri"], t["gidx"])])
-
-    # occ2: exclusive cumsum within each 256-row superblock; occ1: of the
-    # superblock totals, offset by the shards before
-    per_sup = fm.OCC1_INTV // fm.OCC2_INTV
-    grps = [c.reshape(-1, per_sup, 4) for c in t["c16"]]
-    sup_tots = [g.sum(dim=1) for g in grps]
-    dev_tots = [st.sum(dim=0) for st in sup_tots]
+    counts = [block_counts(s * blk, N, bwt, sa, sa_intv)
+              for s, bwt, sa in zip(mesh.local, bwt_blocks, sa_blocks)]
+    pri = mesh.psum([c.pri for c in counts])
+    dev_tots = [c.c16.sum(dim=0) for c in counts]
     offsets = mesh.exclusive_scan(dev_tots)
     totals = mesh.psum(dev_tots)
     cnt = torch.cumsum(totals, dim=0) - totals + 1
+    if sa_intv == 1:
+        mark_offsets = [0] * len(counts)
+    else:
+        mark_offsets = mesh.exclusive_scan([c.marks.sum() for c in counts])
+    n_samp = -(-N // sa_intv)
     out = {name: [] for name in ("words", "occ1", "occ2", "lf_tab",
                                  "b_words", "b_occ", "b_tab", "samp_key")}
-    for g, st, off, words in zip(grps, sup_tots, offsets, t["words"]):
-        occ2 = (torch.cumsum(g, dim=1) - g).reshape(-1, 4)
-        occ1 = torch.cumsum(st, dim=0) - st + off[None, :]
-        lf = torch.cat([torch.repeat_interleave(occ1, per_sup, dim=0) + occ2,
-                        pack.as_u32(words)[:, None]], dim=1)
-        out["words"].append(words)
-        out["occ1"].append(occ1)
-        out["occ2"].append(occ2.to(torch.int32))
-        out["lf_tab"].append(pack.to_u32_bits(lf))
-
-    if sa_intv == 1:
-        for gidx in t["gidx"]:
-            dev = gidx.device
+    for s, c, off, moff in zip(mesh.local, counts, offsets, mark_offsets):
+        tabs = block_tables(c, off, moff)
+        out["words"].append(c.words)
+        for name in ("occ1", "occ2", "lf_tab"):
+            out[name].append(tabs[name])
+        dev = c.words.device
+        gidx = s * blk + torch.arange(blk, dtype=torch.int64, device=dev)
+        if sa_intv == 1:
             out["b_words"].append(torch.zeros(blk // 32, dtype=torch.int32,
                                               device=dev))
             out["b_occ"].append(torch.zeros(blk // fm.B_OCC_INTV,
@@ -129,26 +167,15 @@ def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
             out["b_tab"].append(torch.zeros((blk // fm.B_OCC_INTV, 3),
                                             dtype=torch.int32, device=dev))
             out["samp_key"].append(gidx)
-        return out, cnt, pri
-
-    marks = [v & (sa % sa_intv == 0) for v, sa in zip(t["valid"], sa_blocks)]
-    c64s = [b.reshape(-1, fm.B_OCC_INTV).sum(dim=1) for b in marks]
-    b_offsets = mesh.exclusive_scan([c.sum() for c in c64s])
-    n_samp = -(-N // sa_intv)
-    for b, c64, off, gidx in zip(marks, c64s, b_offsets, t["gidx"]):
-        shifts = torch.arange(32, dtype=torch.int64, device=b.device)
-        b_words = (b.reshape(-1, 32).to(torch.int64) << shifts).sum(dim=1)
-        b_occ = torch.cumsum(c64, dim=0) - c64 + off
-        out["b_words"].append(pack.to_u32_bits(b_words))
-        out["b_occ"].append(b_occ)
-        out["b_tab"].append(pack.to_u32_bits(
-            torch.stack([b_occ, b_words[0::2], b_words[1::2]], dim=1)))
+            continue
+        for name in ("b_words", "b_occ", "b_tab"):
+            out[name].append(tabs[name])
         # each row's global mark rank is its target slot in the sampled
         # SA; unmarked and pad rows get unique keys past every slot, so
         # the sort stays a total order
-        bi = b.to(torch.int64)
-        out["samp_key"].append(torch.where(b, torch.cumsum(bi, 0) - bi + off,
-                                           n_samp + gidx))
+        bi = c.marks.to(torch.int64)
+        out["samp_key"].append(torch.where(
+            c.marks, torch.cumsum(bi, 0) - bi + moff, n_samp + gidx))
     return out, cnt, pri
 
 

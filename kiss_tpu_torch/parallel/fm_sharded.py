@@ -93,14 +93,16 @@ class ShardedFMQuery:
         if total == 0:
             return 0, 0
         if self.fmi.sa_intv != 1 and not self.fmi.full_sa:
-            # the range BFS's stats on the lead device's tables (kernel K4
-            # on a card): two integers come back, not every position
+            # the range BFS's checksum on the lead device's tables (kernel
+            # K4 on a card): integers come back, not every position; the
+            # total is the ranges' rows, as on a single device
             dev = fm._device_of(self.fmi.arrays)
-            return fm.batch_bfs_stats_device(
+            _, checksum = fm.batch_bfs_stats_device(
                 self.fmi.arrays, torch.from_numpy(beg).to(dev),
                 torch.from_numpy(end).to(dev), self.fmi.sa_intv,
                 blocks=self.fmi.blocks,
             )
+            return total, checksum
         rows, _starts = fm._ragged_rows(beg, lens)
         return total, int(self._locate(rows).astype(np.int64).sum())
 

@@ -81,8 +81,7 @@ def check_k_sorted_sample(text_dev, sa, k: int, samples: int) -> None:
     N = n + 1
     if sa.shape[0] != N:
         raise RuntimeError(f"SA length {sa.shape[0]} != {N}")
-    if not bool((torch.bincount(sa, minlength=N) == 1).all()):
-        raise RuntimeError("SA is not a permutation")
+    check_permutation(sa)
     padded = torch.full((n + k,), -1, dtype=torch.int16, device=sa.device)
     padded[:n] = text_dev.to(torch.int16)
     g = torch.Generator(device=sa.device).manual_seed(5)
@@ -98,3 +97,53 @@ def check_k_sorted_sample(text_dev, sa, k: int, samples: int) -> None:
     )
     if not bool(ok.all()):
         raise RuntimeError(f"k={k} SA sample out of order")
+
+
+def check_permutation(perm, chunk: int = 1 << 28) -> None:
+    """Raise unless ``perm`` (int64 [N]) holds every one of 0..N-1: each
+    entry in range and every position seen, by a bitmap filled ``chunk``
+    entries at a time (a byte a position beside the input)."""
+    N = perm.shape[0]
+    seen = torch.zeros(N, dtype=torch.bool, device=perm.device)
+    for lo in range(0, N, chunk):
+        p = perm[lo : lo + chunk]
+        if bool((p < 0).any()) or bool((p >= N).any()):
+            raise RuntimeError("permutation entry out of range")
+        seen[p] = True
+    if not bool(seen.all()):
+        raise RuntimeError("not a permutation: a position is missing")
+
+
+def check_stable_sort(keys, sorted_keys, perm, chunk: int = 1 << 28) -> None:
+    """Raise unless (``sorted_keys``, ``perm``) is the stable sort of
+    ``keys`` (int32 [W, N] holding uint32 bits, word 0 most significant;
+    ``perm`` int64 [N]): ``perm`` is a permutation of 0..N-1
+    (:func:`check_permutation`), ``sorted_keys`` is
+    ``keys[:, perm]``, the keys do not decrease, and equal keys keep their
+    positions in ascending order. Works on ``chunk`` rows at a time, so
+    its temporaries are the chunk's, not N's."""
+    from kiss_tpu_torch.ops.pack import as_u32
+
+    W, N = keys.shape
+    if sorted_keys.shape != keys.shape or perm.shape != (N,):
+        raise RuntimeError("sorted keys or permutation of the wrong shape")
+    check_permutation(perm, chunk)
+    for lo in range(0, N, chunk):
+        hi = min(lo + chunk, N)
+        p = perm[lo:hi]
+        if not torch.equal(sorted_keys[:, lo:hi], keys[:, p]):
+            raise RuntimeError(f"sorted keys are not keys[:, perm] in rows "
+                               f"[{lo}, {hi})")
+        # the pairs (j, j + 1) for j in [lo, hi), the last one across
+        top = min(hi + 1, N)
+        a = as_u32(sorted_keys[:, lo:top])
+        less = torch.zeros(top - lo - 1, dtype=torch.bool, device=a.device)
+        equal = torch.ones_like(less)
+        for w in range(W):
+            x, y = a[w, :-1], a[w, 1:]
+            less |= equal & (x < y)
+            equal &= x == y
+        q = perm[lo:top]
+        if not bool((less | (equal & (q[:-1] < q[1:]))).all()):
+            raise RuntimeError(f"keys out of order, or equal keys out of "
+                               f"position order, in rows [{lo}, {top})")

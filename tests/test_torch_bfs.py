@@ -289,3 +289,122 @@ def test_cli_bfs_at_n_plus_one_multiple_of_64(tmp_path, caplog):
     assert f"location checksum: {checksum}" in msgs
     t_hits = len(oracle.search_all(text, np.array([3], np.int8)))
     assert f"query = T found {t_hits} times" in msgs
+
+
+# ---------------------------------------------------------------------------
+# outside the BFS contract (sort_len < sa_intv - 1 + qlen): the occurrence
+# count is the ranges' rows, sum(end - beg), as kiss_tpu reports it; the
+# BFS's own emissions may be more or fewer there
+# ---------------------------------------------------------------------------
+
+
+def _short_sort_case():
+    """A 600-character tandem-repeat text indexed at sort_len 8, and its
+    20-mers at every third position: far outside the contract of a
+    20-mer at sa_intv 4 (8 < 4 - 1 + 20)."""
+    text = oracle.repeat_heavy_dna(600, unit=37, seed=0)
+    pats = np.stack([text[p : p + 20] for p in range(0, len(text) - 20, 3)])
+    return text, np.ascontiguousarray(pats, dtype=np.int8)
+
+
+def _emitted_within_cap(j, t, pats):
+    """True when kiss_tpu's capacity (``_pow2_cap`` of its total) holds
+    every position the port's BFS emits, so both checksums sum the same
+    positions (kiss_tpu pads with zeros, or truncates past its cap)."""
+    beg, end, _ = t.get_ranges(pats)
+    emitted, _ = tfm.batch_bfs_stats_device(
+        t.arrays, _t64(beg), _t64(end), t.sa_intv)
+    return emitted <= jfm._pow2_cap(int((end - beg).sum()), 128), emitted
+
+
+def test_bfs_total_is_the_ranges_rows_outside_the_contract():
+    text, pats = _short_sort_case()
+    j = jfm.FMIndex(sa_intv=4, lookup_len=0).build(text, sort_len=8)
+    t = tfm.FMIndex(sa_intv=4, lookup_len=0, device="cpu").build(
+        text, sort_len=8)
+    assert not j.full_sa and not t.full_sa
+    beg, end, _ = t.get_ranges(pats)
+    rows = int((end - beg).sum())
+    within, emitted = _emitted_within_cap(j, t, pats)
+    assert emitted != rows  # the case is outside the contract
+    want = j.batch_query_stats(pats)
+    got = t.batch_query_stats(pats)
+    assert got[0] == want[0] == rows
+    if within:
+        assert got[1] == want[1]
+
+
+def test_sharded_bfs_total_is_the_ranges_rows_outside_the_contract():
+    from kiss_tpu.parallel import fm_sharded as jfm_sharded
+    from kiss_tpu.parallel import mesh as jmesh
+    from kiss_tpu_torch.parallel import fm_sharded, make_mesh
+
+    text, pats = _short_sort_case()
+    j = jfm.FMIndex(sa_intv=4, lookup_len=0).build(text, sort_len=8)
+    t = tfm.FMIndex(sa_intv=4, lookup_len=0, device="cpu").build(
+        text, sort_len=8)
+    want = jfm_sharded.ShardedFMQuery(jmesh.make_mesh(4), j).batch_query_stats(
+        pats)
+    got = fm_sharded.ShardedFMQuery(make_mesh(4, device="cpu"),
+                                    t).batch_query_stats(pats)
+    assert got[0] == want[0] == j.batch_query_stats(pats)[0]
+    if _emitted_within_cap(j, t, pats)[0]:
+        assert got[1] == want[1]
+
+
+def test_cli_bfs_counts_outside_the_contract(tmp_path, caplog):
+    """``fmindex_build -k 8 -l 3`` of a 5,000-character genome holding a
+    tandem 37-mer, then ``-b`` of 200 20-mers and ``-q`` of one: the
+    ``number of matched locations`` and ``found N times`` lines are
+    kiss_tpu's (the ranges' rows), and so is the checksum where kiss_tpu's
+    capacity holds every emission."""
+    import logging
+
+    from kiss_tpu import cli as jcli
+    from kiss_tpu_torch import cli as tcli
+    from kiss_tpu_torch.utils import codec, fasta
+
+    rng = np.random.default_rng(37)
+    text = oracle.random_dna(5_000, seed=37)
+    unit = rng.integers(0, 4, 37, dtype=np.int8)
+    text[1_000:2_480] = np.tile(unit, 40)
+    fa = str(tmp_path / "g.fa")
+    fasta.write_fasta(fa, [fasta.FastaRecord("g", text)])
+    starts = rng.integers(900, 2_600, 200)
+    pats = [text[s : s + 20] for s in starts]
+    bpath = str(tmp_path / "p.bin")
+    with open(bpath, "wb") as f:
+        f.write(struct.pack("<II", 20, len(pats)))
+        f.write("".join(codec.to_string(p) for p in pats).encode())
+    q = codec.to_string(pats[0])
+
+    def lines(cli, logger, device):
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger=logger):
+            assert cli.main(["fmindex_build", "-k", "8", "-l", "3", *device,
+                             fa]) == 0
+            assert cli.main(["fmindex_query", "-b", bpath, *device, fa]) == 0
+            assert cli.main(["fmindex_query", "-q", q, "-n", "0", *device,
+                             fa]) == 0
+        msgs = [r.getMessage() for r in caplog.records]
+        out = {}
+        for key in ("number of matched locations: ", "location checksum: ",
+                    f"query = {q} found "):
+            out[key] = [m[len(key):] for m in msgs if m.startswith(key)][-1]
+        return out
+
+    want = lines(jcli, "kiss_tpu", [])
+    got = lines(tcli, "kiss_tpu_torch", ["--device", "cpu"])
+    assert got["number of matched locations: "] == \
+        want["number of matched locations: "]
+    assert got[f"query = {q} found "] == want[f"query = {q} found "]
+    t = tfm.FMIndex(sa_intv=4, device="cpu")
+    with open(fa + ".fmi", "rb") as f:
+        t.load(f)
+    arr = np.stack(pats).astype(np.int8)
+    beg, end, _ = t.get_ranges(arr)
+    emitted, _ = tfm.batch_bfs_stats_device(t.arrays, _t64(beg), _t64(end), 4)
+    rows = int((end - beg).sum())
+    assert int(got["number of matched locations: "]) == rows != emitted
+    if emitted <= jfm._pow2_cap(rows, 128):
+        assert got["location checksum: "] == want["location checksum: "]

@@ -182,6 +182,47 @@ def test_radix_sort_words_stable_payload(cuda):
     assert torch.equal(payload[perm].cpu(), payload.cpu()[order])
 
 
+def test_radix_sort_words_past_2_31_keys(cuda):
+    """K1 at N = 2**31 + 4096, W = 1: its 32-bit index, digit counts and
+    slots past 2**31. 20 bits of each key vary (byte 1 is constant), so
+    runs of about 2,000 equal keys cross the 2**31 mark; the output is held
+    to the whole stable-sort contract (``utils.checks.check_stable_sort``).
+    About 45 GB of the card at the peak."""
+    from kiss_tpu_torch.utils.checks import check_stable_sort
+
+    n = 2**31 + 4096
+    chunk = 1 << 28
+    g = torch.Generator(device=cuda).manual_seed(7)
+    keys = torch.empty((1, n), dtype=torch.int32, device=cuda)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        keys[0, lo:hi] = torch.randint(
+            -2**31, 2**31 - 1, (hi - lo,), dtype=torch.int32, device=cuda,
+            generator=g) & 0x0FFF00FF
+    sorted_keys, perm = radix_sort_words(keys)
+    torch.cuda.synchronize()
+    assert int(perm.max()) == n - 1
+    check_stable_sort(keys, sorted_keys, perm)
+
+
+def test_build_rows_equals_whole_build_on_the_card(cuda):
+    """The row-blocked build on the card (the SA as uint32 bits there and
+    as a host array), blocks crossing every table boundary, against the
+    whole-array build."""
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(300_001, unit=97, seed=3)
+    sa = k_ordered_suffix_array(text, 32, device=cuda)
+    want = fm.build_index_device(torch.from_numpy(text).to(cuda),
+                                 torch.from_numpy(sa.astype(np.int64)).to(cuda),
+                                 4)
+    for sa_in in (sa, torch.from_numpy(sa.view(np.int32)).to(cuda)):
+        got = fm.build_index_rows(torch.from_numpy(text).to(cuda), sa_in, 4,
+                                  block_rows=65_537)
+        for name in fm.FMArrays._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
 @pytest.fixture(scope="module")
 def index_pair():
     if not torch.cuda.is_available():
