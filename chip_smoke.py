@@ -108,6 +108,22 @@ exits non-zero and prints no result line):
      4,096 queries, to the plain versions; the launch counters reset
      before the sort and before the queries, read after each; the peak
      CUDA bytes;
+  7h. the reference's experiment protocol at full width
+     (``kiss_tpu_torch.experiments.run_experiments``): the k sweep of both
+     strategies at k = 2, 4, ..., 256, -1, one timed call after a warm one,
+     the launch counters reset just before each timed call and read just
+     after, every wide SA in k-order on 100,000 sampled pairs and every
+     doubling (PREFIX_DOUBLING) SA bit-identical to the wide one, each
+     call's peak CUDA bytes a character (above the card's holdings, plus
+     the text) at or under ``cli.IN_CORE_BYTES_PER_CHAR``; K1 at the first
+     launch of each (W, N) of the doubling plans held against its plain
+     version and timed; K1 on random words at W = 1, 2, 3, 5, 8 and N =
+     48,800,649 beside its bound, the streaming rate and, at W = 1 and 2,
+     ``torch.sort`` of the words packed into one int64, each output equal
+     (``experiments.micro_roofline``); ``suffix_sort -s PREFIX_DOUBLING -k
+     256`` and ``-k -1`` through the CLI in turns with the default strategy
+     at each k, K1 launched, each SA the sweep's; the mesh sweep at D = 2,
+     k = 256;
   8. the probe path: ``kiss_tpu_torch.experiments.micro_kernels`` and
      ``micro_copy`` through their ``main`` at the probes' own size
      (48,758,784 elements), launch counters reset just before and read
@@ -126,8 +142,10 @@ exits non-zero and prints no result line):
      then one JSON line with each kernel's launches (K1-K3: the main
      path's; K4: the BFS route's ``-b`` for stats and ``-q`` for locate,
      every BFS route's under ``launches_by_path``, the queries on its
-     spill route under ``spilled_by_case``), error, times and bound, and
-     as the last line ``{"ok": true, "device": {...}}``.
+     spill route under ``spilled_by_case``), error, times and bound (K1's
+     at every shape it was timed at under ``shapes``, with ``torch.sort``'s
+     time at W = 1 and 2 as ``library_ms``), and as the last line ``{"ok":
+     true, "device": {...}}``.
 
 It imports the standard library, numpy, torch and kiss_tpu_torch only:
 the synthetic genome and the patterns come from the port's own
@@ -453,15 +471,6 @@ def oracle_stats(torch, text_dev, pats_dev):
     return int((hi - lo).sum()), int((prefix[hi] - prefix[lo]).sum())
 
 
-def k1_bound(keys):
-    """K1 bound: the W key words read and written once, the permutation
-    written (8 bytes a key); one digit step per key byte"""
-    from kiss_tpu_torch.utils.roofline import bound_ms
-
-    return bound_ms(2 * keys.numel() * 4 + 8 * keys.shape[1],
-                    keys.numel() * 4)
-
-
 def recorded_k1(shapes, label, every=False):
     """A sort seam that runs K1 (``radix_sort_wide``) and keeps the keys of
     its first launch of each width (of every launch with ``every``) in
@@ -776,6 +785,7 @@ def phase_mesh(torch, np, kernels, fa, text, text_dev, pats, qw, single, occ,
     from kiss_tpu_torch.parallel.mesh import block_rows
     from kiss_tpu_torch.parallel.sharded_plan import sharded_sa_blocks
     from kiss_tpu_torch.utils.checks import LongestTensor
+    from kiss_tpu_torch.utils.roofline import k1_bound
 
     t_phase = time.perf_counter()
     dev = text_dev.device
@@ -998,6 +1008,7 @@ def phase_k1_shapes(torch, smi, err, shapes):
         radix_sort_words,
         radix_sort_words_plain,
     )
+    from kiss_tpu_torch.utils.roofline import k1_bound
 
     rows = {}
     for name, keys in shapes.items():
@@ -1106,6 +1117,7 @@ def phase_big_n(torch, np, kernels, err, smi):
         check_k_sorted_sample,
         check_stable_sort,
     )
+    from kiss_tpu_torch.utils.roofline import k1_bound
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -1243,6 +1255,130 @@ def phase_big_n(torch, np, kernels, err, smi):
         f"phase {time.perf_counter() - t_phase:.3f} s")
     launches["radix_sort_words"] = k1_launches
     return launches, (k1_ms, None, *bound)
+
+
+def phase_sweep(torch, np, cli, kernels, fa, text, text_dev, err, smi,
+                default_s):
+    """7h: the reference's experiment protocol at full width
+    (``experiments.run_experiments``): both strategies at the nine ks, one
+    timed call each after a warm one, every wide SA in k-order and every
+    doubling SA bit-identical to the wide one, each call's peak bytes a
+    character within ``cli.IN_CORE_BYTES_PER_CHAR``; K1 at each new (W, N)
+    of the doubling rounds held against its plain version and timed; K1
+    against the operand count with ``torch.sort`` of the packed words at W
+    = 1, 2 (``experiments.micro_roofline``); ``suffix_sort -s
+    PREFIX_DOUBLING -k 256`` and ``-k -1`` through the CLI in turns with the
+    default strategy at each k, K1 launched, every SA the sweep's; the mesh
+    sweep at D = 2. Returns ({path: K1 launches}, K1 rows {shape: (ms,
+    plain ms, bound ms, bound by)}, the roofline's K1 rows {shape: {ms,
+    plain_ms, bound_ms, bound_by, library_ms}})."""
+    from kiss_tpu_torch.experiments import micro_roofline as mr
+    from kiss_tpu_torch.experiments import run_experiments as rx
+    from kiss_tpu_torch.ops import pack
+    from kiss_tpu_torch.ops import suffix_sort as ss
+    from kiss_tpu_torch.ops.radix_sort import radix_sort_wide
+    from kiss_tpu_torch.utils.checks import Kept
+
+    t_phase = time.perf_counter()
+    dev = text_dev.device
+    ks = [int(k) for k in rx.KS.split(",")]
+    runs = {}
+    for strategy in ("wide", "doubling"):
+        reference = None
+        if strategy == "doubling":
+            reference = {k: r.sa for k, r in runs["wide"].items()}
+        _, runs[strategy] = rx.sweep(text_dev, ks, strategy, 1, dev,
+                                     reference=reference, say=say)
+    # each call's peak above what the card held before it, plus its text
+    per_char = {(strategy, k): (max(r.above) + N_TEXT) / N_TEXT
+                for strategy, by_k in runs.items() for k, r in by_k.items()}
+    worst = max(per_char, key=per_char.get)
+    check(per_char[worst] <= cli.IN_CORE_BYTES_PER_CHAR,
+          f"{worst} peaks at {per_char[worst]:.2f} bytes a character, over "
+          f"cli.IN_CORE_BYTES_PER_CHAR = {cli.IN_CORE_BYTES_PER_CHAR}")
+    launches = {f"7h: k sweep, {strategy} (one timed call a k)": sum(
+        r.launches for r in by_k.values()) for strategy, by_k in runs.items()}
+    say(f"k sweep n={N_TEXT} on {smi}: seconds, K1 launches, peak bytes a "
+        "char (the call's peak above the card's holdings, plus the text): "
+        + "; ".join(f"{strategy} k={k} {r.seconds[0]:.4f} s, "
+                    f"{r.launches}, {per_char[(strategy, k)]:.2f}"
+                    for strategy, by_k in runs.items()
+                    for k, r in by_k.items())
+        + f"; the largest {per_char[worst]:.2f} ({worst}), within "
+        f"cli.IN_CORE_BYTES_PER_CHAR = {cli.IN_CORE_BYTES_PER_CHAR}")
+
+    # K1 at the first launch of each (W, N) of the doubling rounds, untimed
+    # here: phase_k1_shapes holds each to the plain version and times it
+    shapes, seen = {}, set()
+
+    def first_of_shape(label):
+        calls = []
+
+        def sort(keys):
+            calls.append(keys.shape)
+            if tuple(keys.shape) not in seen:
+                seen.add(tuple(keys.shape))
+                shapes[f"7h doubling {label} launch {len(calls)} "
+                       f"W={keys.shape[0]}"] = keys
+            return radix_sort_wide(keys)
+
+        return sort
+
+    shape = ss._plan_shape("doubling", pack.DNA)
+    for k in ks:
+        plan = ss._make_plan(N_TEXT, ss._normalize_k(k), pack.DNA, *shape)
+        ss._run_plan(text_dev, plan, pack.DNA,
+                     sort_impl=first_of_shape(f"k={k}"))
+    k1_rows = phase_k1_shapes(torch, smi, err, shapes)
+    del shapes
+
+    # K1 against the operand count, torch.sort of the packed words at W <= 2
+    floor = mr.dispatch_floor(dev)
+    sums = mr.stream(dev, mr.STREAM_BYTES, 0)
+    roof = mr.k1_rows(mr.N_SORT, mr.WIDTHS, dev, sums[1] / sums[0])
+    say(f"K1 roofline on {smi} (experiments.micro_roofline; each output "
+        "equal to the plain version's, at W <= 2 to torch.sort's):\n"
+        + "\n".join(mr.table(mr.N_SORT, floor, sums, roof)))
+    roofline = {
+        f"roofline W={w} N={mr.N_SORT} (random words)": {
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r.get("library_ms")}
+        for w, r in roof.items()}
+
+    # the CLI: PREFIX_DOUBLING at k = 256 and -1 beside the default
+    cli_s = {}
+    for name, argv, k in (
+        ("suffix_sort -k 256", ["suffix_sort", "-k", "256", fa], 256),
+        ("suffix_sort -s PREFIX_DOUBLING -k 256",
+         ["suffix_sort", "-s", "PREFIX_DOUBLING", "-k", "256", fa], 256),
+        ("suffix_sort -k -1", ["suffix_sort", "-k", "-1", fa], -1),
+        ("suffix_sort -s PREFIX_DOUBLING -k -1",
+         ["suffix_sort", "-s", "PREFIX_DOUBLING", "-k", "-1", fa], -1),
+    ):
+        with Kept(ss, "k_ordered_suffix_array") as kept:
+            kernels.reset_launch_counts()
+            rc, cli_s[name] = wall_s(lambda argv=argv: cli.main(argv))
+            launches[f"7h: {name}"] = kernels.LAUNCHES["radix_sort_words"]
+        check(rc == 0 and launches[f"7h: {name}"] > 0,
+              f"{name}: rc {rc}, K1 launches {launches[f'7h: {name}']}")
+        check(len(kept.values) == 1
+              and np.array_equal(kept.values[0], runs["wide"][k].sa),
+              f"{name}: its SA is not the sweep's wide SA")
+    del kept
+
+    _, mesh = rx.mesh_sweep(text, [2], 1, dev, runs["wide"][256].sa, say=say)
+    launches["7h: mesh sweep D=2, k=256 (shards on one card)"] = (
+        mesh[2].launches)
+    del runs
+    say(f"CLI on {smi}, n={N_TEXT}: " + ", ".join(
+        f"{name} {t:.3f} s (K1 {launches[f'7h: {name}']})"
+        for name, t in cli_s.items())
+        + " (in turns; phase 5's suffix_sort -k 256, the process's first CLI "
+        f"call, {default_s:.3f} s); each SA the sweep's; mesh D=2 k=256 "
+        f"{mesh[2].seconds[0]:.4f} s, its SA the single-card one; phase "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return launches, k1_rows, roofline
 
 
 def phase_probe_path(torch, kernels):
@@ -1389,7 +1525,7 @@ def main() -> int:
     from kiss_tpu_torch.experiments import micro_kernels as mk
     from kiss_tpu_torch.experiments import sort_split
     from kiss_tpu_torch.utils.checks import LogLines, check_k_sorted_sample
-    from kiss_tpu_torch.utils.roofline import bound_ms
+    from kiss_tpu_torch.utils.roofline import bound_ms, k1_bound
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
     from kiss_tpu_torch.ops.radix_sort import (
@@ -1738,6 +1874,10 @@ def main() -> int:
         torch, np, kernels, err, smi)
     for name in BFS_NAMES:
         bfs_by_path[name][BIG_PATH] = big_launches[name]
+    sweep_launches, sweep_k1_rows, roofline = phase_sweep(
+        torch, np, cli, kernels, fa, text, text_dev, err, smi,
+        steps["suffix_sort -k 256"])
+    k1_rows.update(sweep_k1_rows)
 
     # ---- 8. the probe path, then the probes against their plain versions
     launches.update(phase_probe_path(torch, kernels))
@@ -1927,10 +2067,12 @@ def main() -> int:
             **{name: k1 for name, (_, k1, _, _, _) in mesh_steps.items()
                if k1},
             BIG_PATH: big_launches["radix_sort_words"],
+            **sweep_launches,
         },
         "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
                           "bound_by": by}
-                   for name, (t, p, b, by) in k1_rows.items()},
+                   for name, (t, p, b, by) in k1_rows.items()}
+        | roofline,
         "external_split_s": ext_splits,
     })
     # K2's launches on the mesh path, and its time at the shard's shape

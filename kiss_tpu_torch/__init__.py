@@ -14,8 +14,8 @@ Public API mirrors ``kiss_tpu``'s module and function names:
   - the device mesh behind ``-t N``: :mod:`kiss_tpu_torch.parallel`
   - CLI: ``python -m kiss_tpu_torch suffix_sort|fmindex_build|
     fmindex_query|serve ... [--device cuda|cpu]``
-  - hardware probes: ``python -m kiss_tpu_torch.experiments.micro_kernels``
-    and ``... micro_copy``
+  - measurements: :mod:`kiss_tpu_torch.experiments` (the card's probes,
+    the reference's experiment protocol, the out-of-core routes at scale)
 
 Hand-written CUDA kernels (``kiss_tpu_torch/csrc/``) carry the multi-word
 sort, the backward search, the locate walk and the probes on the GPU;

@@ -72,29 +72,42 @@ class LongestTensor(TorchDispatchMode):
         return out
 
 
-def check_k_sorted_sample(text_dev, sa, k: int, samples: int) -> None:
+# characters a step of check_k_sorted_sample compares
+_WINDOW = 256
+
+
+def check_k_sorted_sample(text_dev, sa, k, samples: int) -> None:
     """Raise unless the SA (int64, on ``text_dev``'s device) is a
     permutation of 0..n and ``samples`` random adjacent rows are in order
     by their first k characters (a suffix that ends sorts first), ties by
-    position."""
+    position. ``k`` None, negative or past n is unbounded: the rows are
+    compared until they differ. The characters are compared _WINDOW at a
+    time, each window only on the pairs that tied on the ones before."""
     n = text_dev.shape[0]
     N = n + 1
     if sa.shape[0] != N:
         raise RuntimeError(f"SA length {sa.shape[0]} != {N}")
     check_permutation(sa)
-    padded = torch.full((n + k,), -1, dtype=torch.int16, device=sa.device)
+    limit = n if k is None or k < 0 or k > n else k
+    padded = torch.full((N,), -1, dtype=torch.int16, device=sa.device)
     padded[:n] = text_dev.to(torch.int16)
     g = torch.Generator(device=sa.device).manual_seed(5)
     r = torch.randint(0, N - 1, (samples,), device=sa.device, generator=g)
     a, b = sa[r], sa[r + 1]
-    cols = torch.arange(k, device=sa.device)
-    wa, wb = padded[a[:, None] + cols], padded[b[:, None] + cols]
-    diff = wa != wb
-    first = torch.argmax(diff.to(torch.int32), dim=1)
-    rows = torch.arange(samples, device=sa.device)
-    ok = torch.where(
-        diff.any(dim=1), wa[rows, first] < wb[rows, first], a < b
-    )
+    ok = a < b  # the verdict of pairs equal on all ``limit`` characters
+    tied = torch.arange(samples, device=sa.device)
+    off = 0
+    while tied.numel() and off < limit:
+        cols = torch.arange(off, min(off + _WINDOW, limit), device=sa.device)
+        wa = padded[torch.clamp(a[tied, None] + cols, max=n)]
+        wb = padded[torch.clamp(b[tied, None] + cols, max=n)]
+        diff = wa != wb
+        first = torch.argmax(diff.to(torch.int32), dim=1)
+        rows = torch.arange(tied.numel(), device=sa.device)
+        decided = diff.any(dim=1)
+        ok[tied[decided]] = (wa[rows, first] < wb[rows, first])[decided]
+        tied = tied[~decided]
+        off += _WINDOW
     if not bool(ok.all()):
         raise RuntimeError(f"k={k} SA sample out of order")
 

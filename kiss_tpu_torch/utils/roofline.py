@@ -1,7 +1,7 @@
 """The least time one H100 could take for a kernel's work: its bytes over
 the memory rate or its integer operations over the integer rate, whichever
 is larger. ``chip_smoke.py`` and the timing experiments give every kernel
-this bound beside its measured time."""
+this bound beside its measured time (K1's is :func:`k1_bound`)."""
 
 from __future__ import annotations
 
@@ -21,3 +21,11 @@ def bound_ms(bytes_moved: float, int_ops: float):
     if by_bytes >= by_ops:
         return by_bytes, "bytes"
     return by_ops, "operations"
+
+
+def k1_bound(keys):
+    """K1 ``radix_sort_words``' bound on a key set (int32 [W, N]): the W key
+    words read and written once and the permutation written (8 bytes a
+    key); one digit step a key byte."""
+    W, N = keys.shape
+    return bound_ms(2 * W * N * 4 + 8 * N, W * N * 4)

@@ -95,6 +95,21 @@ def test_slice_matches_kiss_tpu(corpus, caplog, lookup):
     assert lines[2].startswith("number of matched locations: ")
 
 
+def test_negative_probes_match_kiss_tpu(corpus, caplog, capsys):
+    """The negative probes of ``experiments/cli_e2e_tpu.py``: an absent
+    pattern is found 0 times, and a k that is not a number is refused by
+    both CLIs."""
+    _both(corpus, caplog, ["fmindex_build"])
+    lines = _both(corpus, caplog, ["fmindex_query", "-q", "C" * 22])
+    assert lines[0].endswith("found 0 times")
+    jfa, tfa, _, _ = corpus
+    for main, fa in ((jcli.main, jfa), (tcli.main, tfa)):
+        with pytest.raises(SystemExit):
+            main(["suffix_sort", "-k", "zzz", "--device", "cpu", fa]
+                 if main is tcli.main else ["suffix_sort", "-k", "zzz", fa])
+        assert "invalid int" in capsys.readouterr().err
+
+
 def test_num_threads_clamps_to_one_device(corpus, caplog):
     _both(corpus, caplog, ["suffix_sort", "-k", "100", "-t", "4"])
 

@@ -19,7 +19,11 @@ import pytest
 import torch
 
 from kiss_tpu_torch import kernels
-from kiss_tpu_torch.experiments import micro_copy, micro_kernels
+from kiss_tpu_torch.experiments import (
+    micro_copy,
+    micro_kernels,
+    micro_roofline,
+)
 from kiss_tpu_torch.models import fm_index as fm
 from kiss_tpu_torch.ops import pack
 from kiss_tpu_torch.ops.radix_sort import (
@@ -180,6 +184,55 @@ def test_radix_sort_words_stable_payload(cuda):
         + [keys[i].cpu().numpy().view(np.uint32) for i in range(7, -1, -1)]
     )
     assert torch.equal(payload[perm].cpu(), payload.cpu()[order])
+
+
+def test_radix_sort_words_on_the_doubling_rounds(cuda):
+    """Every K1 launch of the PREFIX_DOUBLING plan at k = 100 and -1 (the
+    16-character seed, 2-key rounds of 3 words at N >= 2**21, the k = 100
+    round with its raw tail, the tail refinement's 8 words) on a
+    tandem-repeat text, against the plain version; the SA equals the wide
+    strategy's."""
+    from kiss_tpu_torch.ops import suffix_sort as ss
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna((1 << 21) + 5, unit=211, seed=4)
+    text_dev = torch.from_numpy(text).to(cuda)
+    shapes = set()
+
+    def compared(keys):
+        got = radix_sort_words(keys)
+        want = radix_sort_words_plain(keys)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        shapes.add(tuple(keys.shape))
+        return got
+
+    for k in (100, -1):
+        plan = ss._make_plan(len(text), ss._normalize_k(k), pack.DNA,
+                             *ss._plan_shape("doubling", pack.DNA))
+        sa = ss._run_plan(text_dev, plan, pack.DNA, sort_impl=compared)
+        np.testing.assert_array_equal(
+            pack.to_u32_bits(sa).cpu().numpy().view(np.uint32),
+            k_ordered_suffix_array(text, k, device=cuda))
+    assert {w for w, _ in shapes} >= {2, 3, 8}
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_packed_torch_sort_equals_k1(cuda, w):
+    """``micro_roofline.packed_sort`` (one ``torch.sort`` of the words
+    packed into an int64) gives K1's sorted words and permutation: keys
+    with the top bit set and ties, and random words."""
+    rng = np.random.default_rng(w)
+    values = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 5, 2**32 - 1],
+                      dtype=np.uint64)
+    for keys in (
+        torch.from_numpy(rng.choice(values, (w, 1_000_003)).astype(
+            np.uint32).view(np.int32)),
+        _words(rng, w, 3_000_001),
+    ):
+        keys = keys.to(cuda)
+        got = micro_roofline.packed_sort(keys)
+        want = radix_sort_words(keys)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def test_radix_sort_words_past_2_31_keys(cuda):
