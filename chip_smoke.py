@@ -124,6 +124,17 @@ exits non-zero and prints no result line):
      256`` and ``-k -1`` through the CLI in turns with the default strategy
      at each k, K1 launched, each SA the sweep's; the mesh sweep at D = 2,
      k = 256;
+  7i. the port's benchmark at full width (``kiss_tpu_torch.bench.main``,
+     what ``python -m kiss_tpu_torch.bench`` runs: the device-path sort at
+     k = 256, both strategies at k = -1, the LMS host sort, both index
+     builds, the 1M batch's counts at lookup 0 and 12 and its stats on
+     every route), the launch counters reset just before and read just
+     after: its JSON line printed on a line of its own, its 14 metrics
+     there, the occurrences and checksum of every route the phase 5
+     oracle's, K1, K2, K3 stats and K4 stats launched; then K2 at the
+     benchmark's two lookup-12 shapes over the CLI's index, the
+     16,777,216-seed table build (the whole table) and the 1M x 25 batch
+     seeded from it, each against its plain version, exact, and timed;
   8. the probe path: ``kiss_tpu_torch.experiments.micro_kernels`` and
      ``micro_copy`` through their ``main`` at the probes' own size
      (48,758,784 elements), launch counters reset just before and read
@@ -142,9 +153,11 @@ exits non-zero and prints no result line):
      then one JSON line with each kernel's launches (K1-K3: the main
      path's; K4: the BFS route's ``-b`` for stats and ``-q`` for locate,
      every BFS route's under ``launches_by_path``, the queries on its
-     spill route under ``spilled_by_case``), error, times and bound (K1's
-     at every shape it was timed at under ``shapes``, with ``torch.sort``'s
-     time at W = 1 and 2 as ``library_ms``), and as the last line ``{"ok":
+     spill route under ``spilled_by_case``; K1-K3 stats: the other paths'
+     under ``launches_by_path``, the benchmark's among them), error, times
+     and bound (K1's and K2's at every shape they were timed at under
+     ``shapes``, with ``torch.sort``'s time at W = 1 and 2 as
+     ``library_ms``), and as the last line ``{"ok":
      true, "device": {...}}``.
 
 It imports the standard library, numpy, torch and kiss_tpu_torch only:
@@ -181,6 +194,7 @@ BIG_QLEN = 13  # inside the BFS contract of a 16-ordered SA at sa_intv 4
 BIG_LOCATED = 8  # patterns 7g locates
 BIG_PLAIN_SAMPLE = 4096  # queries 7g holds against the plain versions
 BIG_PATH = "7g: N = 2**31 + 4096 (K1 sort, build_rows, 13-mer queries)"
+BENCH_PATH = "7i: python -m kiss_tpu_torch.bench (the benchmark's main)"
 
 KERNELS = {
     "radix_sort_words": (
@@ -1381,6 +1395,118 @@ def phase_sweep(torch, np, cli, kernels, fa, text, text_dev, err, smi,
     return launches, k1_rows, roofline
 
 
+def phase_bench(torch, kernels, fmi, qw, lens, occ, checksum, err, smi):
+    """7i: the port's benchmark (``kiss_tpu_torch.bench.main``, what
+    ``python -m kiss_tpu_torch.bench`` runs) at full width, the launch
+    counters reset just before and read just after: its JSON line printed
+    (never as the last line), its 14 metrics there, the occurrences and
+    checksum that every route gave it (it raises where two differ) the
+    phase 5 oracle's, K1, K2, K3 stats and K4 stats launched. Then K2 at the
+    benchmark's two lookup-12 shapes over the CLI's index ``fmi``: the
+    4**12-seed table build (early stop off; the whole table held) and the
+    1M x 25 batch seeded from that table (beg, end, offs; its counts
+    ``lens``, the unseeded ones), each against the plain version, exact,
+    and timed. Returns ({kernel: launches}, K2 rows {shape: (ms, plain ms,
+    bound ms, bound by)})."""
+    import contextlib
+    import io
+
+    from kiss_tpu_torch import bench
+    from kiss_tpu_torch.experiments.fm_query_time import k2_bound
+    from kiss_tpu_torch.models import fm_index as fm
+
+    t_phase = time.perf_counter()
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main([])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    bench_s = time.perf_counter() - t_phase
+    lines = out.getvalue().splitlines()
+    check(rc == 0 and len(lines) == 1,
+          f"the bench returned {rc} and printed {len(lines)} lines")
+    say(lines[0])
+    line = json.loads(lines[0])
+    metrics = {e["metric"]: e for e in line["extra_metrics"]}
+    check(len(metrics) == 13 and line["device"] == smi
+          and line["metric"] == "suffix_sort_throughput_drosophila_k256",
+          f"the bench's line lacks a metric or the card: {sorted(metrics)}, "
+          f"{line['device']!r}")
+    counts = metrics["fmindex_query_1M_len25_counts_per_s"]
+    check((counts["occ"], counts["checksum"]) == (occ, checksum),
+          f"the bench's occ/checksum {(counts['occ'], counts['checksum'])} "
+          f"!= the oracle's {(occ, checksum)}")
+    on_path = ("radix_sort_words", "fm_backward_search", "fm_locate_stats",
+               "fm_bfs_stats")
+    check(all(launches[name] > 0 for name in on_path),
+          f"a kernel of the bench's path was never launched: {launches}")
+
+    dev, L = qw.device, bench.LLEN
+    arrays, blocks = fmi.arrays, fmi.blocks
+    seeds = fm.lookup_seed_words(L, dev)
+    rows = {}
+
+    def table_build():
+        return fm.get_range_packed_device(arrays, seeds, L, 0,
+                                          early_stop=False, blocks=blocks)
+
+    def table_plain():
+        return fm.get_range_packed_device_plain(arrays, seeds, L, 0,
+                                                early_stop=False)
+
+    got = table_build()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = table_plain()
+    plain_peak = torch.cuda.max_memory_allocated() - held
+    for g, w in zip(got, want):
+        err["fm_backward_search"] = max(err["fm_backward_search"],
+                                        exact(g, w))
+    fl = fm.FMIndex(sa_intv=4, lookup_len=L, arrays=arrays,
+                    n_rows=fmi.n_rows, device=dev, blocks=blocks)
+    fl._build_lookup()
+    n_rows = torch.tensor([fmi.n_rows], device=dev)
+    exact(fl.arrays.lookup, torch.cat([want[0], n_rows]))
+    del got, want
+    nseeds = seeds.shape[0]
+    rows[f"7i lookup-{L} table build, {nseeds} seeds x {L} (early stop "
+         "off)"] = (cuda_ms(table_build, 10), cuda_ms(table_plain, 2),
+                    *k2_bound(fmi, nseeds, seeds.numel(), L * nseeds))
+
+    def seeded():
+        return fm.get_range_packed_device(fl.arrays, qw, QLEN, L,
+                                          blocks=blocks)
+
+    def seeded_plain():
+        return fm.get_range_packed_device_plain(fl.arrays, qw, QLEN, L)
+
+    got, want = seeded(), seeded_plain()
+    for g, w in zip(got, want):
+        err["fm_backward_search"] = max(err["fm_backward_search"],
+                                        exact(g, w))
+    exact(got[1] - got[0], lens)
+    lf_steps = int(((QLEN - L) - got[2]).sum())
+    nq = qw.shape[0]
+    rows[f"7i batch {nq} x {QLEN} seeded from the lookup-{L} table"] = (
+        cuda_ms(seeded, 100), cuda_ms(seeded_plain, 3),
+        *k2_bound(fl, nq, qw.numel(), lf_steps, lookup_reads=2 * nq))
+    del got, want, fl, seeds
+    say(f"bench n={N_TEXT} on {smi} (kiss_tpu_torch.bench.main, its line "
+        f"above): {bench_s:.3f} s, occ {occ} and checksum {checksum} (the "
+        f"oracle's) on the walk, the BFS, both host-to-host routes and the "
+        f"loaded archive, the lookup-{L} counts the lookup-0 counts, the "
+        f"device-path SA the library's; launches {launches}. K2 at the "
+        f"lookup-{L} shapes (exact against the plain version; the plain "
+        f"table build peaks {plain_peak} bytes above the card's holdings; "
+        f"{lf_steps} LF steps in the seeded batch), ms, plain ms, bound ms: "
+        + "; ".join(f"{name} {t:.4f}, {p:.4f}, {b:.4f} ({by})"
+                    for name, (t, p, b, by) in rows.items())
+        + f"; phase {time.perf_counter() - t_phase:.3f} s")
+    return launches, rows
+
+
 def phase_probe_path(torch, kernels):
     """The probe entry points as a user runs them, counters reset just
     before and read just after."""
@@ -1878,6 +2004,10 @@ def main() -> int:
         torch, np, cli, kernels, fa, text, text_dev, err, smi,
         steps["suffix_sort -k 256"])
     k1_rows.update(sweep_k1_rows)
+    bench_launches, bench_k2_rows = phase_bench(
+        torch, kernels, fmi, qw, lens, occ, checksum, err, smi)
+    k2_rows.update(bench_k2_rows)
+    bfs_by_path["fm_bfs_stats"][BENCH_PATH] = bench_launches["fm_bfs_stats"]
 
     # ---- 8. the probe path, then the probes against their plain versions
     launches.update(phase_probe_path(torch, kernels))
@@ -2068,6 +2198,7 @@ def main() -> int:
                if k1},
             BIG_PATH: big_launches["radix_sort_words"],
             **sweep_launches,
+            BENCH_PATH: bench_launches["radix_sort_words"],
         },
         "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
                           "bound_by": by}
@@ -2082,11 +2213,17 @@ def main() -> int:
             **{name: k2 for name, (_, _, k2, _, _) in mesh_steps.items()
                if k2},
             BIG_PATH: big_launches["fm_backward_search"],
+            BENCH_PATH: bench_launches["fm_backward_search"],
         },
         "shapes": {name: {"ms": t, "plain_ms": p, "bound_ms": b,
                           "bound_by": by}
                    for name, (t, p, b, by) in k2_rows.items()},
     })
+    # K3 stats' launches on the main path and the benchmark's
+    by_name["fm_locate_stats"]["launches_by_path"] = {
+        "main path": launches["fm_locate_stats"],
+        BENCH_PATH: bench_launches["fm_locate_stats"],
+    }
     # K4's launches on each BFS route, and its times at the CLI chunk and the
     # whole batch
     for name in BFS_NAMES:

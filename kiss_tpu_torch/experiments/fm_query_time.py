@@ -81,12 +81,16 @@ def index_bytes(arrays, blocks, lfs: int, probes: int) -> int:
     return min(split, table)
 
 
-def k2_bound(fmi, nq: int, qwords: int, lf_steps: int):
+def k2_bound(fmi, nq: int, qwords: int, lf_steps: int,
+             lookup_reads: int = 0):
     """K2: packed queries in, three int64 outputs, the index the steps
-    read; about 16 integer operations per LF."""
+    read and the ``lookup_reads`` lookup-table entries the seeded queries
+    read (capped at the table's size); about 16 integer operations per
+    LF."""
     return bound_ms(
         qwords * 4 + 24 * nq
-        + index_bytes(fmi.arrays, fmi.blocks, 2 * lf_steps, 0),
+        + index_bytes(fmi.arrays, fmi.blocks, 2 * lf_steps, 0)
+        + min(fmi.arrays.lookup.numel(), lookup_reads) * 8,
         2 * lf_steps * 16,
     )
 

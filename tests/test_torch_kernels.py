@@ -328,6 +328,43 @@ def test_backward_search_one_query(index_pair, lookup_len):
             assert torch.equal(g, w)
 
 
+def test_backward_search_lookup_12_matches_plain(index_pair):
+    """K2 at the benchmark's lookup-12 shapes over a small index: the
+    4**12-seed table build (early stop off), the whole table against the
+    plain version's, then a seeded batch of 25-mers (beg, end, offs), whose
+    counts are the unseeded ones."""
+    text, idx = index_pair
+    f, L = idx[0], 12
+    seeds = fm.lookup_seed_words(L, "cuda")
+    got = fm.get_range_packed_device(f.arrays, seeds, L, 0, early_stop=False,
+                                     blocks=f.blocks)
+    want = fm.get_range_packed_device_plain(f.arrays, seeds, L, 0,
+                                            early_stop=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    fl = fm.FMIndex(sa_intv=4, lookup_len=L, arrays=f.arrays,
+                    n_rows=f.n_rows, device="cuda", blocks=f.blocks)
+    fl._build_lookup()
+    n_rows = torch.tensor([f.n_rows], device="cuda")
+    assert fl.arrays.lookup.shape == (4**L + 1,)
+    assert torch.equal(fl.arrays.lookup, torch.cat([want[0], n_rows]))
+
+    rng = np.random.default_rng(12)
+    starts = rng.integers(0, len(text) - 25, 3000)
+    queries = text[starts[:, None] + np.arange(25)[None, :]]
+    queries[::10] = rng.integers(0, 4, (300, 25))
+    qw = torch.from_numpy(
+        pack.np_pack_queries_2bit(queries).view(np.int32)
+    ).cuda()
+    got = fm.get_range_packed_device(fl.arrays, qw, 25, L, blocks=f.blocks)
+    want = fm.get_range_packed_device_plain(fl.arrays, qw, 25, L)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    b0, e0, _ = fm.get_range_packed_device(f.arrays, qw, 25, 0,
+                                           blocks=f.blocks)
+    assert torch.equal(got[1] - got[0], e0 - b0)
+
+
 def test_locate_rows_and_stats_match_plain(index_pair):
     text, idx = index_pair
     f = idx[0]
