@@ -76,7 +76,7 @@ def _add_generic(p: argparse.ArgumentParser) -> None:
         "--profile",
         metavar="DIR",
         help="write a torch.profiler trace of this command to "
-        "DIR/trace.json",
+        "DIR/trace.json, the library's kiss.* phases named in it",
     )
     p.add_argument(
         "--device",
@@ -323,15 +323,13 @@ def _build_sharded(fmi: FMIndex, seq: np.ndarray, sort_len, d: int) -> None:
     fmi.full_sa = (
         sort_len is None or sort_len < 0 or sort_len >= len(seq)
     )
-    with timing.stage("suffix sort (sharded)") as out:
-        sa = sharded_sa_blocks(
+    with timing.span(None, log="suffix sort (sharded)") as sp:
+        sa = sp.result(sharded_sa_blocks(
             mesh, text, -1 if sort_len is None else sort_len
-        )
-        out["block_on"] = sa
-    with timing.stage("fmindex build (sharded)") as out:
-        tables = build_index_blocks(mesh, text, sa, fmi.sa_intv)
+        ))
+    with timing.span(None, log="fmindex build (sharded)") as sp:
+        tables = sp.result(build_index_blocks(mesh, text, sa, fmi.sa_intv))
         del sa
-        out["block_on"] = tables
     lookup = sharded_lookup(mesh, tables, fmi.lookup_len)
     fmi.arrays = tables_to_host(mesh, tables, lookup, fmi.sa_intv)
     fmi.n_rows = len(seq) + 1

@@ -137,6 +137,11 @@ def block_table(idx: FMArrays, sa_intv: int) -> FMBlocks:
     has no row for a block that starts at row N (N a multiple of 64):
     that entry gets no mark bits and the count of all marks. An index
     that samples every row (``sa_intv == 1``) has no marks."""
+    with timing.span("kiss.build.block_table", device=True):
+        return _block_table(idx, sa_intv)
+
+
+def _block_table(idx: FMArrays, sa_intv: int) -> FMBlocks:
     lf_rows = idx.lf_tab.shape[0]
     nblk, nsup = _table_rows(idx)
     dev = idx.lf_tab.device
@@ -612,38 +617,41 @@ def get_range_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
     ``fm_backward_search`` (csrc/fm_search.cu), which reads ``blocks``,
     the index's :func:`block_table`; CPU tensors run the plain version,
     which reads ``lf_tab`` and not ``blocks``."""
-    kernels.require(qwords, "qwords", torch.int32, 2)
-    if qwords.shape[1] != -(-qlen // 16):
-        raise ValueError(
-            f"qwords has {qwords.shape[1]} words per query; qlen {qlen} "
-            f"needs {-(-qlen // 16)}"
-        )
-    if lookup_len and 4**lookup_len + 1 != idx.lookup.shape[0]:
-        raise ValueError("lookup_len does not match the index's lookup table")
-    if qwords.device.type == "cpu":
-        return get_range_packed_device_plain(idx, qwords, qlen, lookup_len,
-                                             early_stop)
-    _kernel_inputs(idx, blocks, qwords=qwords)
-    dev = qwords.device
-    q = qwords.shape[0]
-    beg = torch.empty(q, dtype=torch.int64, device=dev)
-    end = torch.empty(q, dtype=torch.int64, device=dev)
-    offs = torch.empty(q, dtype=torch.int64, device=dev)
-    lib = kernels.library()
-    with torch.cuda.device(dev):
-        kernels.check(
-            lib.kt_fm_backward_search(
-                blocks.blk.data_ptr(), blocks.sup.data_ptr(),
-                idx.pri.data_ptr(),
-                idx.lookup.data_ptr(), idx.lookup.shape[0], qwords.data_ptr(),
-                q, qwords.shape[1], qlen, lookup_len, int(early_stop),
-                beg.data_ptr(), end.data_ptr(), offs.data_ptr(),
-                kernels.stream_of(dev),
-            ),
-            "kt_fm_backward_search",
-        )
-    kernels.count_launch("fm_backward_search")
-    return beg, end, offs
+    with timing.span("kiss.query.search"):
+        kernels.require(qwords, "qwords", torch.int32, 2)
+        if qwords.shape[1] != -(-qlen // 16):
+            raise ValueError(
+                f"qwords has {qwords.shape[1]} words per query; qlen "
+                f"{qlen} needs {-(-qlen // 16)}"
+            )
+        if lookup_len and 4**lookup_len + 1 != idx.lookup.shape[0]:
+            raise ValueError(
+                "lookup_len does not match the index's lookup table")
+        if qwords.device.type == "cpu":
+            return get_range_packed_device_plain(idx, qwords, qlen,
+                                                 lookup_len, early_stop)
+        _kernel_inputs(idx, blocks, qwords=qwords)
+        dev = qwords.device
+        q = qwords.shape[0]
+        beg = torch.empty(q, dtype=torch.int64, device=dev)
+        end = torch.empty(q, dtype=torch.int64, device=dev)
+        offs = torch.empty(q, dtype=torch.int64, device=dev)
+        lib = kernels.library()
+        with torch.cuda.device(dev):
+            kernels.check(
+                lib.kt_fm_backward_search(
+                    blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                    idx.pri.data_ptr(),
+                    idx.lookup.data_ptr(), idx.lookup.shape[0],
+                    qwords.data_ptr(),
+                    q, qwords.shape[1], qlen, lookup_len, int(early_stop),
+                    beg.data_ptr(), end.data_ptr(), offs.data_ptr(),
+                    kernels.stream_of(dev),
+                ),
+                "kt_fm_backward_search",
+            )
+        kernels.count_launch("fm_backward_search")
+        return beg, end, offs
 
 
 def _packed_queries(queries, device) -> torch.Tensor:
@@ -757,34 +765,37 @@ def batch_locate_stats_device(idx: FMArrays, beg: torch.Tensor,
     :func:`block_table` (csrc/fm_locate.cu); CPU tensors run the plain
     version, which reads ``lf_tab`` and ``b_tab`` and not ``blocks``. The host waits once, for the two integers, which are all
     that leaves the device."""
-    kernels.require(beg, "beg", torch.int64, 1)
-    kernels.require(end, "end", torch.int64, 1)
-    if beg.shape != end.shape:
-        raise ValueError("beg and end differ in shape")
-    if beg.device.type == "cpu":
-        return batch_locate_stats_device_plain(idx, beg, end, sa_intv)
-    _kernel_inputs(idx, blocks, beg=beg, end=end)
-    if beg.shape[0] == 0:
-        return 0, 0
-    # the kernel reads the total from the inclusive prefix sum of the
-    # lengths and writes (total, checksum): no wait before the launch
-    incl = torch.cumsum(end - beg, dim=0)
-    out = torch.empty(2, dtype=torch.int64, device=beg.device)
-    lib = kernels.library()
-    with torch.cuda.device(beg.device):
-        kernels.check(
-            lib.kt_fm_locate_stats(
-                blocks.blk.data_ptr(), blocks.sup.data_ptr(),
-                idx.pri.data_ptr(),
-                idx.sa_samp.data_ptr(), sa_intv, beg.data_ptr(),
-                incl.data_ptr(),
-                beg.shape[0], out.data_ptr(), kernels.stream_of(beg.device),
-            ),
-            "kt_fm_locate_stats",
-        )
-    kernels.count_launch("fm_locate_stats")
-    total, checksum = out.tolist()
-    return total, checksum
+    with timing.span("kiss.query.locate"):
+        kernels.require(beg, "beg", torch.int64, 1)
+        kernels.require(end, "end", torch.int64, 1)
+        if beg.shape != end.shape:
+            raise ValueError("beg and end differ in shape")
+        if beg.device.type == "cpu":
+            return batch_locate_stats_device_plain(idx, beg, end, sa_intv)
+        _kernel_inputs(idx, blocks, beg=beg, end=end)
+        if beg.shape[0] == 0:
+            return 0, 0
+        # the kernel reads the total from the inclusive prefix sum of the
+        # lengths and writes (total, checksum): no wait before the launch
+        incl = torch.cumsum(end - beg, dim=0)
+        out = torch.empty(2, dtype=torch.int64, device=beg.device)
+        lib = kernels.library()
+        with torch.cuda.device(beg.device):
+            kernels.check(
+                lib.kt_fm_locate_stats(
+                    blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                    idx.pri.data_ptr(),
+                    idx.sa_samp.data_ptr(), sa_intv, beg.data_ptr(),
+                    incl.data_ptr(),
+                    beg.shape[0], out.data_ptr(),
+                    kernels.stream_of(beg.device),
+                ),
+                "kt_fm_locate_stats",
+            )
+        kernels.count_launch("fm_locate_stats")
+        with timing.span("kiss.query.wait"):
+            total, checksum = out.tolist()
+        return total, checksum
 
 
 # ---------------------------------------------------------------------------
@@ -998,44 +1009,47 @@ def _bfs_stats(idx: FMArrays, beg: torch.Tensor, end: torch.Tensor,
                sa_intv: int, blocks):
     """(positions emitted, checksum, sum(end - beg)) by kernel K4's stats
     entry point, or its plain version on CPU tensors."""
-    _check_ranges(beg, end)
-    if beg.device.type == "cpu":
-        emitted, checksum = batch_bfs_stats_device_plain(idx, beg, end,
-                                                         sa_intv)
-        return emitted, checksum, int((end - beg).sum())
-    _bfs_kernel_inputs(idx, blocks, sa_intv, beg=beg, end=end)
-    q = beg.shape[0]
-    if q == 0:
-        return 0, 0, 0
-    dev = beg.device
-    # the kernel's report (total, checksum, spilled, pool need), then the
-    # ranges' rows, summed here before the launch
-    out = torch.empty(5, dtype=torch.int64, device=dev)
-    out[4] = (end - beg).sum()
-    lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = kernels.stream_of(dev)
+    with timing.span("kiss.query.bfs"):
+        _check_ranges(beg, end)
+        if beg.device.type == "cpu":
+            emitted, checksum = batch_bfs_stats_device_plain(idx, beg, end,
+                                                             sa_intv)
+            return emitted, checksum, int((end - beg).sum())
+        _bfs_kernel_inputs(idx, blocks, sa_intv, beg=beg, end=end)
+        q = beg.shape[0]
+        if q == 0:
+            return 0, 0, 0
+        dev = beg.device
+        # the kernel's report (total, checksum, spilled, pool need), then
+        # the ranges' rows, summed here before the launch
+        out = torch.empty(5, dtype=torch.int64, device=dev)
+        out[4] = (end - beg).sum()
+        lib = kernels.library()
+        with torch.cuda.device(dev):
+            stream = kernels.stream_of(dev)
 
-        def run(_, pool_cap):
-            pool = torch.empty(_BFS_NODE_BYTES * pool_cap, dtype=torch.uint8,
-                               device=dev)
-            kernels.check(
-                lib.kt_fm_bfs_stats(
-                    blocks.blk.data_ptr(), blocks.sup.data_ptr(),
-                    idx.pri.data_ptr(), blocks.samp_sum.data_ptr(), sa_intv,
-                    beg.data_ptr(), end.data_ptr(), q, pool.data_ptr(),
-                    pool_cap, out.data_ptr(), stream,
-                ),
-                "kt_fm_bfs_stats",
-            )
-            total, checksum, spilled, need, rows = out.tolist()
-            return (total, checksum, spilled, rows), 0, need
+            def run(_, pool_cap):
+                pool = torch.empty(_BFS_NODE_BYTES * pool_cap,
+                                   dtype=torch.uint8, device=dev)
+                kernels.check(
+                    lib.kt_fm_bfs_stats(
+                        blocks.blk.data_ptr(), blocks.sup.data_ptr(),
+                        idx.pri.data_ptr(), blocks.samp_sum.data_ptr(),
+                        sa_intv,
+                        beg.data_ptr(), end.data_ptr(), q, pool.data_ptr(),
+                        pool_cap, out.data_ptr(), stream,
+                    ),
+                    "kt_fm_bfs_stats",
+                )
+                with timing.span("kiss.query.wait"):
+                    total, checksum, spilled, need, rows = out.tolist()
+                return (total, checksum, spilled, rows), 0, need
 
-        total, checksum, spilled, rows = bfs_until_it_fits(
-            run, 0, bfs_guess(q)[1])
-    kernels.count_launch("fm_bfs_stats")
-    kernels.SPILLED["fm_bfs_stats"] += spilled
-    return total, checksum, rows
+            total, checksum, spilled, rows = bfs_until_it_fits(
+                run, 0, bfs_guess(q)[1])
+        kernels.count_launch("fm_bfs_stats")
+        kernels.SPILLED["fm_bfs_stats"] += spilled
+        return total, checksum, rows
 
 
 # ---------------------------------------------------------------------------
@@ -1189,6 +1203,10 @@ class FMIndex:
         """Build from an int8 reference (values 0..3). Unless a suffix
         array is supplied, sorts the full suffix order (the reference's
         counterpart is fm_index.hpp:379-388)."""
+        with timing.span("kiss.build", device=True):
+            return self._build(ref, sa, sort_len)
+
+    def _build(self, ref, sa, sort_len) -> "FMIndex":
         dev = self._dev
         ref = np.ascontiguousarray(ref, dtype=np.int8)
         if sa is None:
@@ -1203,12 +1221,12 @@ class FMIndex:
             sa = sa.to(device=dev, dtype=torch.int64)
         else:
             sa = torch.from_numpy(np.asarray(sa).astype(np.int64)).to(dev)
-        with timing.stage("fmindex build") as out:
-            arrays = build_index_device(torch.from_numpy(ref).to(dev), sa,
-                                        self.sa_intv)
-            # the stage's time includes the block table, made last
-            self.blocks = block_table(arrays, self.sa_intv)
-            out["block_on"] = self.blocks
+        # the stopwatch line's time includes the block table, made last
+        with timing.span(None, log="fmindex build") as sp:
+            with timing.span("kiss.build.tables", device=True):
+                arrays = build_index_device(torch.from_numpy(ref).to(dev),
+                                            sa, self.sa_intv)
+            self.blocks = sp.result(block_table(arrays, self.sa_intv))
         self.arrays = arrays
         self.n_rows = len(ref) + 1
         self._build_lookup()
@@ -1226,10 +1244,9 @@ class FMIndex:
         if not isinstance(ref, torch.Tensor):
             ref = torch.from_numpy(np.ascontiguousarray(ref, dtype=np.int8))
         text = ref.to(dev)
-        with timing.stage("fmindex build (rows in blocks)") as out:
+        with timing.span(None, log="fmindex build (rows in blocks)") as sp:
             arrays = build_index_rows(text, sa, self.sa_intv, block_rows)
-            self.blocks = block_table(arrays, self.sa_intv)
-            out["block_on"] = self.blocks
+            self.blocks = sp.result(block_table(arrays, self.sa_intv))
         self.arrays = arrays
         self.n_rows = text.shape[0] + 1
         self.full_sa = full_sa

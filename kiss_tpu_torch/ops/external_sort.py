@@ -456,7 +456,7 @@ def external_k_ordered_suffix_array(
         bid = (w0p[:N] >> np.uint32(32 - 2 * bchars)).astype(
             np.uint16 if bchars <= 8 else np.uint32
         )
-    with timing.stage("external bucketize"):
+    with timing.span(None, log="external bucketize"):
         sa, bstarts = bucketize(text, bchars, bid=bid)
     del bid
     t0 = _lap(split, "bucketize", t0)

@@ -23,6 +23,7 @@ import torch
 
 from kiss_tpu_torch import kernels
 from kiss_tpu_torch.ops.pack import as_u32
+from kiss_tpu_torch.utils import timing
 
 MAX_WORDS = 9
 MAX_KEYS = 2**32 - 1  # the kernel's index and counts are unsigned 32-bit
@@ -144,6 +145,8 @@ def _radix_sort_words_cuda(keys: torch.Tensor):
     stream = kernels.stream_of(dev)
     counts = digit_counts_cuda(keys)
     kernels.count_launch("radix_sort_words")
+    timing.add("k1_keys", N)  # the work K1's roofline counts
+    timing.add("k1_key_words", W * N)
     plan = pass_plan(counts.cpu().numpy().view(np.uint32), N)
     if not plan:
         return keys.clone(), torch.arange(N, dtype=torch.int64, device=dev)

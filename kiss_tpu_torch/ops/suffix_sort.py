@@ -539,15 +539,17 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
     single-program path, ``k_ordered_suffix_array_device``). Both give
     the identical SA. ``sort_impl`` is the multi-word sort seam."""
     nrounds = len(plan.rounds)
-    # per-phase stopwatch logs under --verbose (reference model:
-    # kiss1_core.hpp:244-267 / README.md:94-101 stage table)
+    # a span a phase: kiss.sort.* in a profiler's trace, the stopwatch
+    # lines under --verbose (reference model: kiss1_core.hpp:244-267 /
+    # README.md:94-101 stage table)
     dbg = timing.debug_enabled()
-    sa, rank, done = timing.staged(
-        f"seed_sort(chars={plan.seed_chars})" if dbg else None,
-        lambda: _seed_sort(
+    with timing.span(
+        "kiss.sort.seed", device=True,
+        log=f"seed_sort(chars={plan.seed_chars})" if dbg else None,
+    ) as sp:
+        sa, rank, done = sp.result(_seed_sort(
             text, plan.seed_chars, alphabet, nrounds > 0, sort_impl
-        ),
-    )
+        ))
     if nrounds == 0:
         return sa
 
@@ -582,23 +584,25 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
                 # cover past n behaves like cover == n + 1 (all shifted
                 # keys out of range)
                 c = min(cover, N)
-                sa, rank, rows, m = timing.staged(
-                    f"tail_refine[{t}](m={m}, cover={cover})" if dbg
+                with timing.span(
+                    "kiss.sort.tail", device=True,
+                    log=f"tail_refine[{t}](m={m}, cover={cover})" if dbg
                     else None,
-                    lambda rows=rows, m=m, c=c: _tail_refine(
+                ) as sp:
+                    sa, rank, rows, m = sp.result(_tail_refine(
                         sa, rank, rows, m, c, sort_impl
-                    ),
-                )
+                    ))
                 cover *= MAX_RANK_KEYS
                 t += 1
             break
         if _is_full(rnd, cover):
+            run = _full_round
             args = (
                 text, ranks[cover], cover, len(rnd.rank_keys), need_rank,
                 sort_impl,
             )
-            run = lambda args=args: _full_round(*args)  # noqa: E731
         else:
+            run = _rank_block_sort
             level_ids = sorted(
                 lv for lv in ranks if lv in save_levels or lv == cover
             )
@@ -607,13 +611,13 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
                 rnd.tail_chars, rnd.tail_offset, alphabet, need_rank,
                 sort_impl,
             )
-            run = lambda args=args: _rank_block_sort(*args)  # noqa: E731
-        sa, rank, done = timing.staged(
-            f"wide_round[{i}](cover {cover}->{rnd.new_cover})" if dbg
+        with timing.span(
+            "kiss.sort.round", device=True,
+            log=f"wide_round[{i}](cover {cover}->{rnd.new_cover})" if dbg
             else None,
-            run,
-        )
-        del run, args
+        ) as sp:
+            sa, rank, done = sp.result(run(*args))
+        del args
         if need_rank:
             if cover not in save_levels:
                 ranks.pop(cover, None)
@@ -666,10 +670,10 @@ def k_ordered_suffix_array(
     seed_chars, max_keys = _plan_shape(strategy, alphabet)
     plan = _make_plan(n, _normalize_k(k), alphabet, seed_chars, max_keys)
 
-    with timing.stage("k_ordered_suffix_array") as out:
+    with timing.span("kiss.sort", device=True,
+                     log="k_ordered_suffix_array") as sp:
         text = text.to(dev)
-        sa = _run_plan(text, plan, alphabet)
-        out["block_on"] = sa
+        sa = sp.result(_run_plan(text, plan, alphabet))
     if as_numpy:
         return pack.to_u32_bits(sa).cpu().numpy().view(np.uint32)
     return sa
@@ -685,7 +689,8 @@ def k_ordered_suffix_array_device(
     n = text.shape[0]
     seed_chars, max_keys = _plan_shape(strategy, alphabet)
     plan = _make_plan(n, _normalize_k(k), alphabet, seed_chars, max_keys)
-    return _run_plan(text, plan, alphabet, refine_tail=False)
+    with timing.span("kiss.sort", device=True):
+        return _run_plan(text, plan, alphabet, refine_tail=False)
 
 
 def _normalize_k(k) -> int | None:

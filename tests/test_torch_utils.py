@@ -165,9 +165,10 @@ def test_timing_stage_and_sync(caplog):
     x = torch.arange(10)
     timing.sync((x, [x * 2]))  # CPU tensors: nothing to wait for
     with caplog.at_level(logging.DEBUG, logger="kiss_tpu_torch"):
-        out = timing.staged("demo_stage", lambda: (x + 1, 3))
-        with timing.stage("outer") as res:
-            res["block_on"] = x
+        with timing.span(None, log="demo_stage") as sp:
+            out = sp.result((x + 1, 3))
+        with timing.span("kiss.demo", log="outer"):
+            pass
     msgs = [r.getMessage() for r in caplog.records]
     assert out[1] == 3
     assert any(m.startswith("demo_stage elapsed ") for m in msgs)
