@@ -200,6 +200,10 @@ KERNELS = {
     "radix_sort_words": (
         "kiss_tpu_torch/csrc/radix_sort.cu", "kiss_tpu/ops/suffix_sort.py:334"
     ),
+    "seed_key_words": (
+        "kiss_tpu_torch/csrc/seed_pack.cu",
+        "none: kiss_tpu/ops/suffix_sort.py:328-333 packs with jnp ops",
+    ),
     "fm_backward_search": (
         "kiss_tpu_torch/csrc/fm_search.cu", "kiss_tpu/models/fm_index.py:444"
     ),
@@ -1651,7 +1655,7 @@ def main() -> int:
     from kiss_tpu_torch.experiments import micro_kernels as mk
     from kiss_tpu_torch.experiments import sort_split
     from kiss_tpu_torch.utils.checks import LogLines, check_k_sorted_sample
-    from kiss_tpu_torch.utils.roofline import bound_ms, k1_bound
+    from kiss_tpu_torch.utils.roofline import bound_ms, k1_bound, k5_bound
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
     from kiss_tpu_torch.ops.radix_sort import (
@@ -2030,7 +2034,22 @@ def main() -> int:
         _, t_k2 = wall_s(lambda: fn(radix_sort_words))
         times[label] = (min(t_k, t_k2), t_p)
 
-    w5 = sort_split.seed_sort_words(text_dev)
+    # K5 at the seed sort's shape (W = 5, N = n + 1) against its plain
+    # version, and timed; then K1 on the same words
+    w5 = pack.seed_key_words(text_dev, 64)
+    err["seed_key_words"] = exact(w5, pack.seed_key_words_plain(text_dev, 64))
+    ms["seed_key_words"] = cuda_ms(lambda: pack.seed_key_words(text_dev, 64),
+                                   50)
+    plain_ms["seed_key_words"] = cuda_ms(
+        lambda: pack.seed_key_words_plain(text_dev, 64), 3
+    )
+    bounds["seed_key_words"] = k5_bound(w5)
+    say(f"K5 on {smi}: W = {w5.shape[0]}, N = {w5.shape[1]}: equal to the "
+        f"plain version; {ms['seed_key_words']:.4f} ms (plain "
+        f"{plain_ms['seed_key_words']:.3f}), bound "
+        f"{bounds['seed_key_words'][0]:.4f} ({bounds['seed_key_words'][1]})")
+    check(torch.equal(w5, sort_split.seed_sort_words(text_dev)),
+          "K5's words are not the plain chain's")
     ms["radix_sort_words"] = cuda_ms(lambda: radix_sort_words(w5), 5)
     plain_ms["radix_sort_words"] = cuda_ms(
         lambda: radix_sort_words_plain(w5), 3

@@ -21,6 +21,10 @@ can leave that range. Tables that are stored rather than computed with
 (the packed BWT words) are ``int32`` tensors holding the uint32 bits;
 :func:`as_u32` widens them back.
 
+The seed sort's DNA words come from :func:`seed_key_words`: on a card the
+hand-written kernel K5 (``csrc/seed_pack.cu``) writes them in one pass, in
+the int32 layout K1 sorts.
+
 Two alphabets, mirroring the reference's DNA/general split
 (reference: kiss1_core.hpp:229-268 vs 270-311):
   - DNA (sigma=4): 4 bits/char, 8 chars per 32-bit word.
@@ -33,6 +37,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from kiss_tpu_torch import kernels
+from kiss_tpu_torch.utils import timing
 
 U32_MASK = 0xFFFFFFFF
 
@@ -217,6 +224,79 @@ def fused_end_pos(n: int, cover: int, device, *, start: int = 0,
     p = start + torch.arange(rows, dtype=torch.int64, device=device)
     ln = n - p
     return torch.where(ln < cover, ln, p + cover)
+
+
+# ---------------------------------------------------------------------------
+# K5: the seed sort's key words in K1's layout
+# ---------------------------------------------------------------------------
+
+SEED_MAX_CHARS = 64  # four raw 2-bit words
+
+
+def seed_key_words_plain(text: torch.Tensor, seed_chars: int, *,
+                         start: int = 0, n: int | None = None,
+                         rows: int | None = None) -> torch.Tensor:
+    """Plain version of K5 ``seed_key_words``: the raw 2-bit words of
+    ``seed_chars`` characters (:func:`suffix_key_words_2bit`) and the
+    fused end/position word (:func:`fused_end_pos`) as int32 [W, rows], W =
+    ceil(seed_chars / 16) + 1, the layout the seed sort hands K1: the raw
+    words whole, the fused word masked to fbits = max(bit_length(n), 1)
+    bits and shifted to the top of its word (the aligned placement
+    ``suffix_sort._field_layout`` gives it). ``start``, ``n`` and ``rows``
+    give the block form of :func:`suffix_key_words_2bit`."""
+    if n is None:
+        n = text.shape[0]
+    if rows is None:
+        rows = n + 1 - start
+    words = suffix_key_words_2bit(text, seed_chars, 0, start=start, n=n,
+                                  rows=rows)
+    out = torch.empty((len(words) + 1, rows), dtype=torch.int32,
+                      device=text.device)
+    for w in range(len(words)):
+        out[w] = to_u32_bits(words[w])
+        words[w] = None
+    fbits = max(int(n).bit_length(), 1)
+    fused = fused_end_pos(n, seed_chars, text.device, start=start, rows=rows)
+    out[-1] = to_u32_bits((fused & ((1 << fbits) - 1)) << (32 - fbits))
+    return out
+
+
+def seed_key_words(text: torch.Tensor, seed_chars: int) -> torch.Tensor:
+    """The seed sort's key words of every suffix 0..n of DNA ``text``
+    (int8 or uint8 [n]): int32 [ceil(seed_chars / 16) + 1, n + 1], bit for
+    bit :func:`seed_key_words_plain`. On a CUDA tensor the hand-written
+    kernel K5 (``csrc/seed_pack.cu``) writes them in one pass; on a CPU
+    tensor the plain version runs. There is no fallback between the
+    two."""
+    if not 1 <= seed_chars <= SEED_MAX_CHARS:
+        raise ValueError(
+            f"seed_key_words takes 1..{SEED_MAX_CHARS} characters, got "
+            f"{seed_chars}")
+    if text.device.type == "cpu":
+        return seed_key_words_plain(text, seed_chars)
+    if text.device.type != "cuda":
+        raise ValueError(f"seed_key_words: unsupported device {text.device}")
+    if text.dtype not in (torch.int8, torch.uint8):
+        raise TypeError(f"seed_key_words: expected int8 or uint8 text, got "
+                        f"{text.dtype}")
+    kernels.require(text, "text", text.dtype, 1)
+    n = text.shape[0]
+    if n >= 2**32:
+        raise ValueError(f"seed_key_words takes n < 2**32, got {n}")
+    W = -(-seed_chars // 16) + 1
+    with torch.cuda.device(text.device):
+        out = torch.empty((W, n + 1), dtype=torch.int32, device=text.device)
+        kernels.check(
+            kernels.library().kt_seed_key_words(
+                text.data_ptr(), n, seed_chars, max(n.bit_length(), 1),
+                out.data_ptr(), kernels.stream_of(text.device),
+            ),
+            "kt_seed_key_words",
+        )
+    kernels.count_launch("seed_key_words")
+    timing.add("seed_keys", n + 1)  # the work K5's roofline counts
+    timing.add("seed_key_words", W * (n + 1))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -330,7 +330,8 @@ def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
 
     Raw 2-bit packed words (16 chars per word) plus ONE word fusing the
     end-of-text rule with the position (:func:`pack.fused_end_pos`), run
-    as one total-order sort: 5 words for the standard 64-char seed.
+    as one total-order sort: 5 words for the standard 64-char seed. The
+    words come from :func:`pack.seed_key_words` (kernel K5 on a card).
     """
     n = text.shape[0]
     if alphabet is not pack.DNA:
@@ -348,13 +349,11 @@ def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
             return sa, sa, True
         rank, done = _ranks_of_sorted(list(ops[:-1]), sa)
         return sa, rank, done
-    words2 = pack.suffix_key_words_2bit(text, seed_chars, 0)
-    fused = pack.fused_end_pos(n, seed_chars, text.device)
-    fbits = max(int(n).bit_length(), 1)
-    packed, places = _pack_fields(
-        [(w, 32, False) for w in words2] + [(fused, fbits, True)]
+    packed = pack.seed_key_words(text, seed_chars)
+    places, _ = _field_layout(
+        [(32, False)] * (packed.shape[0] - 1)
+        + [(max(int(n).bit_length(), 1), True)]
     )
-    del words2, fused
     ops, _ = sort_impl(packed)
     del packed
     fused_s = _extract_field(ops, places[-1])

@@ -29,3 +29,10 @@ def k1_bound(keys):
     key); one digit step a key byte."""
     W, N = keys.shape
     return bound_ms(2 * W * N * 4 + 8 * N, W * N * 4)
+
+
+def k5_bound(words):
+    """K5 ``seed_key_words``' bound on the words it wrote (int32 [W, N]):
+    the words written once and a text byte a row read once."""
+    W, N = words.shape
+    return bound_ms(4 * W * N + N, 0)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K1 ``radix_sort_words``, K2 ``fm_backward_search``
+card: K1 ``radix_sort_words``, K5 ``seed_key_words``, K2 ``fm_backward_search``
 (``get_range_packed_device``), K3 ``fm_locate_rows`` / ``fm_locate_stats``
 (``locate_rows_device`` / ``batch_locate_stats_device``), K4
 ``fm_bfs_locate`` / ``fm_bfs_stats`` (``bfs_locate_device`` /
@@ -256,6 +256,82 @@ def test_radix_sort_words_past_2_31_keys(cuda):
     torch.cuda.synchronize()
     assert int(perm.max()) == n - 1
     check_stable_sort(keys, sorted_keys, perm)
+
+
+# ---------------------------------------------------------------- K5
+
+
+def _seed_text(kind, n, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed + n)
+    high = 4 if kind == "dna" else 256  # "bytes": every value 0..255
+    return torch.randint(0, high, (n,), dtype=torch.uint8, device=device,
+                         generator=g).view(torch.int8)
+
+
+@pytest.mark.parametrize("kind", ["dna", "bytes"])
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 63, 64, 65, 1000, 4097])
+@pytest.mark.parametrize("seed_chars", [1, 15, 16, 17, 32, 48, 63, 64])
+def test_seed_key_words_matches_plain(cuda, seed_chars, n, kind):
+    text = _seed_text(kind, n, cuda)
+    got = pack.seed_key_words(text, seed_chars)
+    want = pack.seed_key_words_plain(text, seed_chars)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["dna", "bytes"])
+def test_seed_key_words_at_the_sort_cells_shape(cuda, kind):
+    """W = 5, N = 48,800,649 (the drosophila chromosome's rows), and the
+    text as a slice that starts at an odd byte (the staging's unaligned
+    route)."""
+    n = 48_800_648
+    text = _seed_text(kind, n + 1, cuda)
+    for t in (text[:n], text[1:]):
+        got = pack.seed_key_words(t, 64)
+        want = pack.seed_key_words_plain(t, 64)
+        torch.cuda.synchronize()
+        assert got.shape == (5, n + 1)
+        assert torch.equal(got, want)
+
+
+def test_seed_key_words_past_2_31_columns(cuda):
+    """W = 2 at N = 2**31 + 4097 columns: row 1's offsets pass 2**31 and
+    2**32, where 32-bit column indexing would wrap. The plain version holds
+    windows of rows: the first, and those across column 2**31 - 4097
+    (where row 1 passes word 2**32) and 2**31 to the end. About 20 GB of
+    the card."""
+    n = 2**31 + 4096
+    text = _seed_text("dna", n, cuda)
+    got = pack.seed_key_words(text, 16)
+    torch.cuda.synchronize()
+    assert got.shape == (2, n + 1)
+    windows = ((0, 1 << 20), (2**31 - (1 << 20), n + 1 - (2**31 - (1 << 20))))
+    for start, rows in windows:
+        want = pack.seed_key_words_plain(text[start:], 16, start=start, n=n,
+                                         rows=rows)
+        assert torch.equal(got[:, start : start + rows], want), start
+    del got, text
+    torch.cuda.empty_cache()
+
+
+def test_seed_key_words_raises_on_the_card(cuda):
+    """No fallback to the plain version: a CUDA text the kernel does not
+    take raises."""
+    with pytest.raises(TypeError):
+        pack.seed_key_words(torch.zeros(100, dtype=torch.int64, device=cuda),
+                            64)
+    with pytest.raises(ValueError):
+        pack.seed_key_words(torch.zeros((2, 100), dtype=torch.int8,
+                                        device=cuda), 64)
+
+
+def test_sort_launches_k5_once(cuda):
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(40_000, unit=700, seed=3)
+    kernels.reset_launch_counts()
+    k_ordered_suffix_array(text, 256, device="cuda")
+    assert kernels.LAUNCHES["seed_key_words"] == 1
 
 
 def test_build_rows_equals_whole_build_on_the_card(cuda):

@@ -68,6 +68,53 @@ def test_clamped_len_and_fused_end_pos(cover):
     )
 
 
+def _seed_text(kind, n):
+    rng = np.random.default_rng(n)
+    if kind == "dna":
+        return rng.integers(0, 4, n).astype(np.int8)
+    return rng.integers(-128, 128, n).astype(np.int8)  # every byte 0..255
+
+
+@pytest.mark.parametrize("kind", ["dna", "bytes"])
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 63, 64, 65, 1000, 4097])
+@pytest.mark.parametrize("seed_chars", [1, 15, 16, 17, 32, 48, 63, 64])
+def test_seed_key_words_plain_is_the_packed_chain(seed_chars, n, kind):
+    """K5's plain version, bit for bit the chain the seed sort ran before
+    it: the raw 2-bit words and the fused end/position word through
+    ``_pack_fields``, also for n below seed_chars and for bytes above 3
+    (which spill into their neighbours' lanes)."""
+    from kiss_tpu_torch.ops.suffix_sort import _pack_fields
+
+    text = torch.from_numpy(_seed_text(kind, n))
+    want, places = _pack_fields(
+        [(w, 32, False) for w in pack.suffix_key_words_2bit(text, seed_chars)]
+        + [(pack.fused_end_pos(n, seed_chars, "cpu"),
+            max(n.bit_length(), 1), True)]
+    )
+    got = pack.seed_key_words_plain(text, seed_chars)
+    assert got.dtype == torch.int32
+    assert got.shape == (-(-seed_chars // 16) + 1, n + 1)
+    assert torch.equal(got, want)
+    assert places[-1][0] == 32 * (got.shape[0] - 1)  # the fused word's own
+    # on a CPU tensor the wrapper is the plain version
+    assert torch.equal(pack.seed_key_words(text, seed_chars), got)
+    # the block form: the rows of a window, as the whole text's
+    if n >= 16:
+        start, rows = n // 3, n // 2
+        part = pack.seed_key_words_plain(text[start:], seed_chars,
+                                         start=start, n=n, rows=rows)
+        assert torch.equal(part, got[:, start : start + rows])
+
+
+def test_seed_key_words_refuses_what_it_does_not_take():
+    text = torch.zeros(10, dtype=torch.int8)
+    for chars in (0, 65):
+        with pytest.raises(ValueError):
+            pack.seed_key_words(text, chars)
+    with pytest.raises(ValueError):
+        pack.seed_key_words(text.to("meta"), 64)
+
+
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 1001])
 def test_pack_dibits_u32(n):
     vals = np.random.default_rng(n).integers(0, 4, n).astype(np.int8)

@@ -138,6 +138,20 @@ def test_device_form_equals_host_form(k):
     np.testing.assert_array_equal(dev.numpy(), host.astype(np.int64))
 
 
+@pytest.mark.parametrize("seed_chars", [64, 16])
+def test_seed_sort_matches_kiss_tpu(seed_chars):
+    """The seed sort on its words from ``pack.seed_key_words``: SA, rank
+    and the all-singleton flag equal ``kiss_tpu``'s on the same text."""
+    text = oracle.repeat_heavy_dna(N_TEXT, unit=37, seed=5)
+    sa_j, rank_j, done_j = jss._seed_sort(jnp.asarray(text), seed_chars,
+                                          jpack.DNA, True)
+    sa_t, rank_t, done_t = tss._seed_sort(torch.from_numpy(text), seed_chars,
+                                          tss.pack.DNA, True)
+    np.testing.assert_array_equal(sa_t.numpy(), np.asarray(sa_j))
+    np.testing.assert_array_equal(rank_t.numpy(), np.asarray(rank_j))
+    assert bool(done_t) == bool(done_j)
+
+
 def test_tail_refine_step_matches_kiss_tpu():
     """One compacted refinement step on identical state, with a capacity
     above the active count (fill rows alias row 0 and write the
