@@ -627,12 +627,16 @@ def get_range_packed_device(idx: FMArrays, qwords: torch.Tensor, qlen: int,
         if lookup_len and 4**lookup_len + 1 != idx.lookup.shape[0]:
             raise ValueError(
                 "lookup_len does not match the index's lookup table")
+        q = qwords.shape[0]
+        timing.add("k2_queries", q)
+        # one seed lookup a query: the pair lookup[key], lookup[key + 1]
+        timing.add("k2_lookup_reads",
+                   q if lookup_len and qlen >= lookup_len else 0)
         if qwords.device.type == "cpu":
             return get_range_packed_device_plain(idx, qwords, qlen,
                                                  lookup_len, early_stop)
         _kernel_inputs(idx, blocks, qwords=qwords)
         dev = qwords.device
-        q = qwords.shape[0]
         beg = torch.empty(q, dtype=torch.int64, device=dev)
         end = torch.empty(q, dtype=torch.int64, device=dev)
         offs = torch.empty(q, dtype=torch.int64, device=dev)
@@ -1264,11 +1268,12 @@ class FMIndex:
             lookup = torch.tensor([0, N], dtype=torch.int64, device=dev)
         else:
             L = self.lookup_len
-            beg, _end, _ = get_range_packed_device(
-                self.arrays, lookup_seed_words(L, dev), L, 0,
-                early_stop=False, blocks=self.blocks,
-            )
-            lookup = torch.cat([beg, torch.tensor([N], device=dev)])
+            with timing.span("kiss.build.lookup", device=True):
+                beg, _end, _ = get_range_packed_device(
+                    self.arrays, lookup_seed_words(L, dev), L, 0,
+                    early_stop=False, blocks=self.blocks,
+                )
+                lookup = torch.cat([beg, torch.tensor([N], device=dev)])
         self.arrays = self.arrays._replace(lookup=lookup)
 
     # -- queries ----------------------------------------------------------

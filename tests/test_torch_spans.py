@@ -140,7 +140,9 @@ def test_summary_self_time_is_duration_less_children(traced):
                                                   rel=1e-12, abs=1e-9)
         assert 0 <= s["self_host_ms"] <= s["host_ms"]
         assert s["device_ms"] is None  # no CUDA in use
-        assert s["counts"] == {}  # K1's counters count the card's sorts
+        # K1's counters count the card's sorts; K2's its patterns anywhere
+        assert s["counts"] == ({"k2_queries": 100, "k2_lookup_reads": 0}
+                               if name == "kiss.query.search" else {})
 
 
 def test_events_are_host_events_only(traced):
