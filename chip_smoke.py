@@ -144,6 +144,8 @@ exits non-zero and prints no result line):
      turns;
   9. step times of the main path and of the plain versions at the same
      shapes, K1 also at a tail-refinement shape (W = 8, N = 1,048,576);
+     K5 at the seed sort's shape and K6 at the build cell's (N =
+     248,387,329 rows), each against its plain version, exact, and timed;
      K2 and K3 timed alone (``experiments.fm_query_time``) at a CLI chunk,
      the whole batch, the ``-q`` rows and 1M random rows, each output held
      to the plain version, with the 32-byte sectors each table layout
@@ -188,6 +190,8 @@ PROBE_REPS = 50  # launches per timing of a probe kernel
 EXT_BATCH_ROWS = 1 << 21
 # phase 7g: a text of BIG_N characters, N = 2**31 + 4096 rows
 BIG_N = 2**31 + 4095
+# the build cell's rows (chm13 chromosome 1, kissbench's chm13chr1.build_full)
+BUILD_N = 248_387_329
 BIG_CHUNK = 1 << 28  # positions a step of 7g's tensor code takes at once
 BIG_QUERIES = 65_536
 BIG_QLEN = 13  # inside the BFS contract of a 16-ordered SA at sa_intv 4
@@ -203,6 +207,10 @@ KERNELS = {
     "seed_key_words": (
         "kiss_tpu_torch/csrc/seed_pack.cu",
         "none: kiss_tpu/ops/suffix_sort.py:328-333 packs with jnp ops",
+    ),
+    "occ_tables": (
+        "kiss_tpu_torch/csrc/occ_tables.cu",
+        "none: kiss_tpu/models/fm_index.py:178-189 scans with jnp ops",
     ),
     "fm_backward_search": (
         "kiss_tpu_torch/csrc/fm_search.cu", "kiss_tpu/models/fm_index.py:444"
@@ -1655,7 +1663,9 @@ def main() -> int:
     from kiss_tpu_torch.experiments import micro_kernels as mk
     from kiss_tpu_torch.experiments import sort_split
     from kiss_tpu_torch.utils.checks import LogLines, check_k_sorted_sample
-    from kiss_tpu_torch.utils.roofline import bound_ms, k1_bound, k5_bound
+    from kiss_tpu_torch.utils.roofline import (
+        bound_ms, k1_bound, k5_bound, k6_bound,
+    )
     from kiss_tpu_torch.models import fm_index as fm
     from kiss_tpu_torch.ops import pack
     from kiss_tpu_torch.ops.radix_sort import (
@@ -2050,6 +2060,29 @@ def main() -> int:
         f"{bounds['seed_key_words'][0]:.4f} ({bounds['seed_key_words'][1]})")
     check(torch.equal(w5, sort_split.seed_sort_words(text_dev)),
           "K5's words are not the plain chain's")
+    # K6 at the build cell's shape (N = 248,387,329 rows, the sentinel in a
+    # middle superblock, random words) against its plain version, and timed
+    occ_g = torch.Generator(device=dev).manual_seed(BUILD_N)
+    occ_words = torch.randint(-2**31, 2**31 - 1, (-(-BUILD_N // 16),),
+                              dtype=torch.int32, device=dev,
+                              generator=occ_g)
+    occ_at = BUILD_N // 2 + 100  # row 100 of its superblock
+    occ_pri = torch.tensor(occ_at, device=dev)
+    occ_words[occ_at // 16] &= ~(3 << 2 * (occ_at % 16))  # symbol 0 there
+    occ_off = torch.zeros(4, dtype=torch.int64, device=dev)
+    occ = fm.occ_tables(occ_words, BUILD_N, occ_pri, occ_off)
+    err["occ_tables"] = max(exact(a, b) for a, b in zip(
+        occ, fm.occ_tables_plain(occ_words, BUILD_N, occ_pri, occ_off)))
+    ms["occ_tables"] = cuda_ms(
+        lambda: fm.occ_tables(occ_words, BUILD_N, occ_pri, occ_off), 50)
+    plain_ms["occ_tables"] = cuda_ms(
+        lambda: fm.occ_tables_plain(occ_words, BUILD_N, occ_pri, occ_off), 3)
+    bounds["occ_tables"] = k6_bound(occ)
+    say(f"K6 on {smi}: N = {BUILD_N}, {occ.lf_tab.shape[0]} table rows: "
+        f"equal to the plain version; {ms['occ_tables']:.4f} ms (plain "
+        f"{plain_ms['occ_tables']:.3f}), bound "
+        f"{bounds['occ_tables'][0]:.4f} ({bounds['occ_tables'][1]})")
+    del occ, occ_words
     ms["radix_sort_words"] = cuda_ms(lambda: radix_sort_words(w5), 5)
     plain_ms["radix_sort_words"] = cuda_ms(
         lambda: radix_sort_words_plain(w5), 3

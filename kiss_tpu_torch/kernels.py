@@ -1,8 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The kernel sources (``csrc/radix_sort.cu``, ``csrc/seed_pack.cu``,
-``csrc/fm_search.cu``, ``csrc/fm_locate.cu``, ``csrc/fm_bfs.cu``,
-``csrc/micro_probes.cu``) have
+``csrc/occ_tables.cu``, ``csrc/fm_search.cu``, ``csrc/fm_locate.cu``,
+``csrc/fm_bfs.cu``, ``csrc/micro_probes.cu``) have
 a plain C interface. They are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc``
 process per source and all started together, and linked into one shared
 library under ``kiss_tpu_torch/build/`` at first use, which is loaded
@@ -33,8 +33,8 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("radix_sort.cu", "seed_pack.cu", "fm_search.cu", "fm_locate.cu",
-           "fm_bfs.cu", "micro_probes.cu")
+SOURCES = ("radix_sort.cu", "seed_pack.cu", "occ_tables.cu", "fm_search.cu",
+           "fm_locate.cu", "fm_bfs.cu", "micro_probes.cu")
 HEADERS = ("fm_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "radix_sort_words": 0,
     "seed_key_words": 0,
+    "occ_tables": 0,
     "fm_backward_search": 0,
     "fm_locate_rows": 0,
     "fm_locate_stats": 0,
@@ -149,6 +150,7 @@ _SIGNATURES = {
     "kt_gather_words": [_P, _I, _L, _P, _U, _U, _P, _I, _P, _P],
     "kt_gather_rows4": [_P, _L, _P, _I, _I, _I, _I, _P, _P, _P],
     "kt_seed_key_words": [_P, _L, _I, _I, _P, _P],
+    "kt_occ_tables": [_P, _L, _L, _P, _P, _L, _P, _P, _P, _P, _P, _P],
     "kt_fm_backward_search": [
         _P, _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P,
     ],

@@ -5,10 +5,12 @@ Port of ``kiss_tpu.models.fm_index`` (itself a re-design of the reference
 include/biovoltron/algo/align/exact_match/fm_index.hpp:99-652):
 
   - The build is whole-array tensor code: the BWT by the gather
-    ``text[sa - 1]``, the two-level occ table by masked popcounts over
-    the packed BWT words and exclusive scans, the sampled SA by a boolean
-    mask select. (The TPU build used sorts in place of the gather and the
-    select; the outputs are the same.)
+    ``text[sa - 1]``, the sampled SA by a boolean mask select. (The TPU
+    build used sorts in place of the gather and the select; the outputs
+    are the same.) The occurrence tables (occ1, occ2 and the fused
+    ``lf_tab``) come from the packed BWT words in one pass of kernel K6
+    (``csrc/occ_tables.cu``); :func:`occ_tables_plain`, masked popcounts
+    and exclusive scans, is its plain version.
   - Queries are batched: the backward search (kernel K2,
     ``csrc/fm_search.cu``) runs one thread per pattern; locate (kernel K3,
     ``csrc/fm_locate.cu``) walks each row to a sampled one, and its stats
@@ -203,23 +205,125 @@ def arrays_from_numpy(d, device) -> FMArrays:
 # ---------------------------------------------------------------------------
 
 
-def _word_symbol_counts(bwt_words: torch.Tensor, N: int, pri: torch.Tensor):
-    """counts[j, c] = #occurrences of symbol c among the valid rows of
-    16-row block j, straight from the packed BWT words by XOR + masked
-    popcount (the whole-array form of the reference's cnt_table byte
-    scan, fm_index.hpp:158-164). The sentinel row packs as symbol 0 and
-    is subtracted from its block."""
+class OccTables(NamedTuple):
+    """The occurrence tables of a run of packed BWT words
+    (:func:`occ_tables`), ``R`` table rows of 16 BWT rows each."""
+
+    occ1: torch.Tensor  # int64 [ceil(R / 16), 4]: counts before row 256 s
+    occ2: torch.Tensor  # int32 [R, 4]: counts in j's superblock before 16 j
+    lf_tab: torch.Tensor  # int32 bits [R, 5]: occ1[j // 16] + occ2[j], word j
+    totals: torch.Tensor  # int64 [4]: every word's counts, without the offset
+
+
+# K6's table rows a tile and 64-bit status words a tile (csrc/occ_tables.cu)
+_OCC_TILE_ROWS = 1024
+_OCC_STATUS_WORDS = 4
+
+
+def _occ_table_rows(bwt_words: torch.Tensor, rows: int,
+                    table_rows: int | None) -> int:
     W = bwt_words.shape[0]
-    starts = torch.arange(W, dtype=torch.int64, device=bwt_words.device)
-    t = torch.clamp(N - starts * OCC2_INTV, max=OCC2_INTV)
-    cnts = torch.stack(
-        [pack.count_symbol_prefix(bwt_words, c, t) for c in range(4)], dim=1
-    )
-    cnts[:, 0].index_add_(
-        0, (pri // OCC2_INTV).reshape(1),
-        torch.full((1,), -1, dtype=cnts.dtype, device=cnts.device),
-    )
-    return cnts
+    if table_rows is None:
+        table_rows = rows // OCC2_INTV + 1
+    if not 0 <= rows <= OCC2_INTV * W or table_rows < W:
+        raise ValueError(
+            f"occ_tables: {W} words hold {OCC2_INTV * W} rows and need "
+            f"{W} table rows; got rows={rows}, table_rows={table_rows}")
+    return table_rows
+
+
+def occ_tables_plain(bwt_words: torch.Tensor, rows: int, pri: torch.Tensor,
+                     occ_off: torch.Tensor,
+                     table_rows: int | None = None) -> OccTables:
+    """Plain version of K6 ``occ_tables`` (the build's occ scans,
+    reference: fm_index.hpp:277-308, as whole-array tensor code): each
+    word's symbol counts among the first ``rows`` rows by XOR + masked
+    popcount (the whole-array form of the reference's cnt_table byte
+    scan, fm_index.hpp:158-164), the row ``pri`` counted as none; occ2 the
+    exclusive cumsum within each 256-row superblock, occ1 that of the
+    superblock totals plus ``occ_off``, and lf_tab their sum beside each
+    word (0 past the last)."""
+    table_rows = _occ_table_rows(bwt_words, rows, table_rows)
+    dev = bwt_words.device
+    W = bwt_words.shape[0]
+    per_sup = OCC1_INTV // OCC2_INTV
+    nsup = -(-table_rows // per_sup)
+    starts = torch.arange(W, dtype=torch.int64, device=dev) * OCC2_INTV
+    t = torch.clamp(rows - starts, 0, OCC2_INTV)
+    c16 = torch.zeros((nsup * per_sup, 4), dtype=torch.int64, device=dev)
+    for c in range(4):
+        c16[:W, c] = pack.count_symbol_prefix(bwt_words, c, t)
+    # the sentinel row packs as symbol 0 but counts as none
+    here = (pri >= 0) & (pri < rows)
+    c16[:, 0].index_add_(0, (torch.where(here, pri, 0) // OCC2_INTV)
+                         .reshape(1), -here.to(torch.int64).reshape(1))
+    g = c16.reshape(nsup, per_sup, 4)
+    # occ2's content fits uint8; full counts only at the occ1 level
+    occ2 = (torch.cumsum(g, dim=1) - g).reshape(-1, 4)[:table_rows]
+    sup_tot = g.sum(dim=1)
+    occ1 = torch.cumsum(sup_tot, dim=0) - sup_tot + occ_off
+    words = torch.zeros(table_rows, dtype=torch.int64, device=dev)
+    words[:W] = pack.as_u32(bwt_words)
+    lf = torch.cat([torch.repeat_interleave(occ1, per_sup, dim=0)[:table_rows]
+                    + occ2, words[:, None]], dim=1)
+    return OccTables(occ1, occ2.to(torch.int32), pack.to_u32_bits(lf),
+                     sup_tot.sum(dim=0))
+
+
+def occ_tables(bwt_words: torch.Tensor, rows: int, pri: torch.Tensor,
+               occ_off: torch.Tensor,
+               table_rows: int | None = None) -> OccTables:
+    """The occurrence tables (occ1, occ2, lf_tab and the symbol totals) of
+    the packed BWT words ``bwt_words`` (int32 bits, 16 rows a word,
+    LSB-first), of which the first ``rows`` rows count, the row ``pri``
+    (an int64 scalar on the words' device, the sentinel's row among them;
+    a value outside [0, rows) counts none) as no symbol; that row must
+    hold symbol 0, as a BWT's sentinel row does (the kernel leaves the row
+    out, the plain version takes one from symbol 0). ``occ_off`` (int64
+    [4]) the counts before the first row. ``table_rows`` rows of occ2 and
+    lf_tab (default rows // 16 + 1, the canonical shape of an index of
+    ``rows`` rows); at least one a word. Bit for bit
+    :func:`occ_tables_plain`: on a CUDA tensor the hand-written kernel K6
+    (``csrc/occ_tables.cu``) writes them in one pass; on a CPU tensor the
+    plain version runs. There is no fallback between the two."""
+    table_rows = _occ_table_rows(bwt_words, rows, table_rows)
+    dev = bwt_words.device
+    if dev.type == "cpu":
+        return occ_tables_plain(bwt_words, rows, pri, occ_off, table_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"occ_tables: unsupported device {dev}")
+    kernels.require(bwt_words, "bwt_words", torch.int32, 1)
+    kernels.require(pri, "pri", torch.int64, 0)
+    kernels.require(occ_off, "occ_off", torch.int64, 1)
+    kernels.require_cuda({"pri": pri, "occ_off": occ_off}, dev)
+    if occ_off.shape[0] != 4:
+        raise ValueError(
+            f"occ_off: expected 4 counts, got {occ_off.shape[0]}")
+    if rows >= 2**32:
+        raise ValueError(f"occ_tables takes rows < 2**32, got {rows}")
+    sups = -(-table_rows // (OCC1_INTV // OCC2_INTV))
+    tiles = -(-table_rows // _OCC_TILE_ROWS)
+    with torch.cuda.device(dev):
+        occ1 = torch.empty((sups, 4), dtype=torch.int64, device=dev)
+        occ2 = torch.empty((table_rows, 4), dtype=torch.int32, device=dev)
+        lf_tab = torch.empty((table_rows, 5), dtype=torch.int32, device=dev)
+        totals = torch.empty(4, dtype=torch.int64, device=dev)
+        scratch = torch.empty(1 + _OCC_STATUS_WORDS * tiles,
+                              dtype=torch.int64, device=dev)
+        kernels.check(
+            kernels.library().kt_occ_tables(
+                bwt_words.data_ptr(), bwt_words.shape[0], rows,
+                pri.data_ptr(), occ_off.data_ptr(), table_rows,
+                occ2.data_ptr(), occ1.data_ptr(), lf_tab.data_ptr(),
+                totals.data_ptr(), scratch.data_ptr(),
+                kernels.stream_of(dev),
+            ),
+            "kt_occ_tables",
+        )
+    kernels.count_launch("occ_tables")
+    timing.add("occ_words", table_rows)  # the work K6's roofline counts
+    timing.add("occ_sups", sups)
+    return OccTables(occ1, occ2, lf_tab, totals)
 
 
 def build_index_device(text: torch.Tensor, sa: torch.Tensor, sa_intv: int):
@@ -242,25 +346,11 @@ def build_index_device(text: torch.Tensor, sa: torch.Tensor, sa_intv: int):
     del bwt, tv
 
     # ---- occ tables (reference: fm_index.hpp:277-308)
-    c16 = _word_symbol_counts(bwt_words, N, pri)  # [ceil(N/16), 4]
-    nb2 = N // OCC2_INTV + 1
-    nb1 = N // OCC1_INTV + 1
-    blocks_per_sup = OCC1_INTV // OCC2_INTV
-    npad2 = nb1 * blocks_per_sup
-    c16p = torch.zeros((npad2, 4), dtype=torch.int64, device=dev)
-    c16p[: c16.shape[0]] = c16
-    grp = c16p.reshape(nb1, blocks_per_sup, 4)
-    # occ2: exclusive cumsum within each 256-superblock (content fits
-    # uint8; full counts only at the occ1 level)
-    occ2 = (torch.cumsum(grp, dim=1) - grp).reshape(npad2, 4)[:nb2].to(
-        torch.int32
-    )
-    sup_tot = grp.sum(dim=1)
-    occ1 = (torch.cumsum(sup_tot, dim=0) - sup_tot)[:nb1]
-    totals = sup_tot.sum(dim=0)
+    occ = occ_tables(bwt_words, N, pri,
+                     torch.zeros(4, dtype=torch.int64, device=dev))
     # cnt[c] = 1 + sum of totals of smaller symbols (the +1 is the
     # sentinel, reference: fm_index.hpp:303-307)
-    cnt = torch.cumsum(totals, dim=0) - totals + 1
+    cnt = torch.cumsum(occ.totals, dim=0) - occ.totals + 1
 
     # ---- sampled SA + marks (reference: fm_index.hpp:331-371)
     if sa_intv == 1:
@@ -288,8 +378,8 @@ def build_index_device(text: torch.Tensor, sa: torch.Tensor, sa_intv: int):
 
     lookup = torch.tensor([0, N], dtype=torch.int64, device=dev)
     return FMArrays(
-        bwt_words, occ1, occ2, cnt, pri, sa_samp, b_words, b_occ, lookup,
-        _fuse_lf_tab(occ1, occ2, bwt_words), _fuse_b_tab(b_occ, b_words),
+        bwt_words, occ.occ1, occ.occ2, cnt, pri, sa_samp, b_words, b_occ,
+        lookup, occ.lf_tab, _fuse_b_tab(b_occ, b_words),
     )
 
 
@@ -394,7 +484,7 @@ def build_index_rows(text: torch.Tensor, sa, sa_intv: int = 4,
         for name, x in block.items():
             step = P // tabs[name].shape[0]  # rows a table row spans
             tabs[name][row0 // step : (row0 + take) // step] = x
-        occ_off += counts.c16.sum(dim=0)
+        occ_off += counts.totals
         pri += counts.pri
         if sa_intv == 1:
             m = min(take, N - row0)

@@ -75,7 +75,9 @@ class BlockCounts(NamedTuple):
     (:func:`block_counts`)."""
 
     words: torch.Tensor  # int32 bits [B / 16]: the BWT, 16 dibits a word
-    c16: torch.Tensor  # int64 [B / 16, 4]: each 16-row block's symbols
+    rows: int  # the block's rows before row N
+    at: torch.Tensor  # int64 scalar: the sentinel's row in the block, or -1
+    totals: torch.Tensor  # int64 [4]: the block's symbols (sentinel: none)
     marks: torch.Tensor | None  # bool [B]: sampled rows (None: sa_intv 1)
     pri: torch.Tensor  # int64 scalar: the sentinel's row if here, else 0
 
@@ -88,37 +90,29 @@ def block_counts(row0: int, N: int, bwt: torch.Tensor, sa: torch.Tensor,
     block lies in one block of rows). Rows from N on are pads: BWT symbol
     0, SA 1 (never the sentinel, never marked)."""
     dev = bwt.device
-    gidx = row0 + torch.arange(bwt.shape[0], dtype=torch.int64, device=dev)
-    words = pack.pack_dibits_u32(bwt)
-    starts = (torch.arange(words.shape[0], dtype=torch.int64, device=dev)
-              * fm.OCC2_INTV + row0)
-    cut = torch.clamp(N - torch.clamp(starts, max=N), 0, fm.OCC2_INTV)
-    c16 = torch.stack(
-        [pack.count_symbol_prefix(words, c, cut) for c in range(4)], dim=1)
+    B = bwt.shape[0]
+    rows = min(max(N - row0, 0), B)
+    gidx = row0 + torch.arange(B, dtype=torch.int64, device=dev)
     # the sentinel row packs as symbol 0 but counts as none
     is_pri = (gidx < N) & (sa == 0)
-    c16[:, 0] -= is_pri.reshape(-1, fm.OCC2_INTV).sum(dim=1)
+    totals = torch.stack([(bwt[:rows] == c).sum() for c in range(4)])
+    totals[0] -= is_pri.sum()
+    at = torch.where(is_pri, gidx - row0 + 1, 0).sum() - 1
     marks = None if sa_intv == 1 else (gidx < N) & (sa % sa_intv == 0)
-    return BlockCounts(words, c16, marks, torch.where(is_pri, gidx, 0).sum())
+    return BlockCounts(pack.pack_dibits_u32(bwt), rows, at, totals, marks,
+                       torch.where(is_pri, gidx, 0).sum())
 
 
 def block_tables(counts: BlockCounts, occ_off, mark_off) -> dict:
     """The table rows of one block of rows (occ1, occ2, lf_tab and, unless
     the index samples every row, b_words, b_occ and b_tab; the fields of
     :class:`ShardedTables`) from its :func:`block_counts`, given what the
-    rows before it carry: each symbol's count (``occ_off``, int64 [4]) and
-    the marks (``mark_off``)."""
-    per_sup = fm.OCC1_INTV // fm.OCC2_INTV
-    g = counts.c16.reshape(-1, per_sup, 4)
-    sup_tot = g.sum(dim=1)
-    # occ2: exclusive cumsum within each 256-row superblock; occ1: of the
-    # superblock totals, offset by the rows before
-    occ2 = (torch.cumsum(g, dim=1) - g).reshape(-1, 4)
-    occ1 = torch.cumsum(sup_tot, dim=0) - sup_tot + occ_off
-    lf = torch.cat([torch.repeat_interleave(occ1, per_sup, dim=0) + occ2,
-                    pack.as_u32(counts.words)[:, None]], dim=1)
-    out = {"occ1": occ1, "occ2": occ2.to(torch.int32),
-           "lf_tab": pack.to_u32_bits(lf)}
+    rows before it carry: each symbol's count (``occ_off``, int64 [4] on
+    the block's device) and the marks (``mark_off``). The occurrence
+    tables are :func:`kiss_tpu_torch.models.fm_index.occ_tables`'."""
+    occ = fm.occ_tables(counts.words, counts.rows, counts.at, occ_off,
+                        table_rows=counts.words.shape[0])
+    out = {"occ1": occ.occ1, "occ2": occ.occ2, "lf_tab": occ.lf_tab}
     if counts.marks is not None:
         b = counts.marks
         shifts = torch.arange(32, dtype=torch.int64, device=b.device)
@@ -141,7 +135,7 @@ def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
     counts = [block_counts(s * blk, N, bwt, sa, sa_intv)
               for s, bwt, sa in zip(mesh.local, bwt_blocks, sa_blocks)]
     pri = mesh.psum([c.pri for c in counts])
-    dev_tots = [c.c16.sum(dim=0) for c in counts]
+    dev_tots = [c.totals for c in counts]
     offsets = mesh.exclusive_scan(dev_tots)
     totals = mesh.psum(dev_tots)
     cnt = torch.cumsum(totals, dim=0) - totals + 1

@@ -36,3 +36,10 @@ def k5_bound(words):
     the words written once and a text byte a row read once."""
     W, N = words.shape
     return bound_ms(4 * W * N + N, 0)
+
+
+def k6_bound(occ):
+    """K6 ``occ_tables``' bound on the tables it wrote (an ``OccTables``):
+    a packed word read and 36 bytes written (occ2 and lf_tab) a table row,
+    and 32 bytes of occ1 a superblock."""
+    return bound_ms(40 * occ.lf_tab.shape[0] + 32 * occ.occ1.shape[0], 0)

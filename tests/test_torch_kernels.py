@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K1 ``radix_sort_words``, K5 ``seed_key_words``, K2 ``fm_backward_search``
-(``get_range_packed_device``), K3 ``fm_locate_rows`` / ``fm_locate_stats``
-(``locate_rows_device`` / ``batch_locate_stats_device``), K4
+card: K1 ``radix_sort_words``, K5 ``seed_key_words``, K6 ``occ_tables``, K2
+``fm_backward_search`` (``get_range_packed_device``), K3 ``fm_locate_rows``
+/ ``fm_locate_stats`` (``locate_rows_device`` /
+``batch_locate_stats_device``), K4
 ``fm_bfs_locate`` / ``fm_bfs_stats`` (``bfs_locate_device`` /
 ``batch_bfs_stats_device``), and the seven probes P1-P7 of
 ``kiss_tpu_torch.experiments``. All outputs are integers, so every
@@ -332,6 +333,130 @@ def test_sort_launches_k5_once(cuda):
     kernels.reset_launch_counts()
     k_ordered_suffix_array(text, 256, device="cuda")
     assert kernels.LAUNCHES["seed_key_words"] == 1
+
+
+# ---------------------------------------------------------------- K6
+
+
+def _occ_words(N, pri, device, seed=0):
+    """Random packed BWT words of N rows whose row ``pri`` holds symbol 0,
+    as the BWT puts the sentinel; the lanes past N random too."""
+    g = torch.Generator(device=device).manual_seed(seed + N)
+    w = torch.randint(-2**31, 2**31 - 1, (-(-N // 16),), dtype=torch.int32,
+                      device=device, generator=g)
+    if 0 <= pri < N:
+        keep = ~(3 << (2 * (pri % 16))) & 0xFFFFFFFF
+        w[pri // 16] &= keep - ((keep >> 31) << 32)  # as int32 bits
+    return w
+
+
+def _occ_equal(got, want):
+    torch.cuda.synchronize()
+    for name, a, b in zip(fm.OccTables._fields, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+
+
+# row counts on both sides of 16, 256, 65,536 and of K6's 16,384-row tile
+OCC_ROWS = [1, 2, 15, 16, 17, 255, 256, 257, 16_383, 16_384, 16_385, 65_535,
+            65_536, 65_537, 3 * 65_536 + 4_000, 1_000_003]
+OCC_OFFSETS = [(0, 0, 0, 0), (2**31 + 7, 123_456, 2**32 - 5, 9)]
+
+
+@pytest.mark.parametrize("off", OCC_OFFSETS, ids=["zero", "block"])
+@pytest.mark.parametrize("place", ["first", "middle", "last", "none"])
+@pytest.mark.parametrize("N", OCC_ROWS)
+def test_occ_tables_matches_plain(cuda, N, place, off):
+    pri = {"first": min(5, N - 1), "last": N - 1, "none": -1,
+           "middle": (N // 512) * 256 + 100 if (N // 512) * 256 + 100 < N
+           else N // 2}[place]
+    words = _occ_words(N, pri, cuda)
+    pri_t = torch.tensor(pri, dtype=torch.int64, device=cuda)
+    occ_off = torch.tensor(off, dtype=torch.int64, device=cuda)
+    for table_rows in (None, -(-N // 16) + 37):
+        got = fm.occ_tables(words, N, pri_t, occ_off, table_rows)
+        want = fm.occ_tables_plain(words, N, pri_t, occ_off, table_rows)
+        _occ_equal(got, want)
+
+
+def test_occ_tables_block_form_and_unaligned_words(cuda):
+    """The row-blocked builds' form (table rows = words, N cutting the
+    block, a sentinel row outside it), and words that start 4 bytes past a
+    16-byte boundary (the scalar loads)."""
+    words = _occ_words(65_536 * 3, 70_000, cuda, seed=9)
+    occ_off = torch.tensor(OCC_OFFSETS[1], dtype=torch.int64, device=cuda)
+    # the view words[1:] starts 16 rows on: its row 69,984 is row 70,000
+    for w, rows, pri in ((words, 3 * 65_536, 70_000),
+                         (words, 100_001, 2**40),
+                         (words[1:], 16 * (len(words) - 1) - 3, 69_984)):
+        pri_t = torch.tensor(pri, dtype=torch.int64, device=cuda)
+        got = fm.occ_tables(w, rows, pri_t, occ_off, table_rows=len(w))
+        want = fm.occ_tables_plain(w, rows, pri_t, occ_off,
+                                   table_rows=len(w))
+        _occ_equal(got, want)
+
+
+def test_occ_tables_at_the_build_cells_shape(cuda):
+    """N = 248,387,329 (the build cell's rows), the sentinel in a middle
+    superblock, with no offset and with a block offset whose lf_tab counts
+    pass 2**32."""
+    N = 248_387_329
+    pri = 123_456_789
+    words = _occ_words(N, pri, cuda, seed=1)
+    pri_t = torch.tensor(pri, dtype=torch.int64, device=cuda)
+    for off in OCC_OFFSETS:
+        occ_off = torch.tensor(off, dtype=torch.int64, device=cuda)
+        got = fm.occ_tables(words, N, pri_t, occ_off)
+        want = fm.occ_tables_plain(words, N, pri_t, occ_off)
+        _occ_equal(got, want)
+        del got, want
+    torch.cuda.empty_cache()
+
+
+def test_occ_tables_raises_on_the_card(cuda):
+    """No fallback to the plain version: CUDA inputs the kernel does not
+    take raise."""
+    words = _occ_words(1000, 3, cuda)
+    pri = torch.tensor(3, device=cuda)
+    off = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        fm.occ_tables(words.to(torch.int64), 1000, pri, off)
+    with pytest.raises(ValueError):
+        fm.occ_tables(words, 1000, pri.cpu(), off)
+    with pytest.raises(ValueError):
+        fm.occ_tables(words, 1000, pri, off[:3])
+
+
+def test_build_launches_k6_once(cuda):
+    from tests import oracle
+
+    text = oracle.repeat_heavy_dna(40_000, unit=700, seed=3)
+    kernels.reset_launch_counts()
+    fm.FMIndex(sa_intv=4, lookup_len=0, device=cuda).build(text)
+    assert kernels.LAUNCHES["occ_tables"] == 1
+
+
+def test_build_rows_goes_through_k6_on_the_card(cuda):
+    """``FMIndex.build_rows`` on the card launches K6 once a block and
+    writes the ``.fmi`` bytes of the whole build."""
+    import io
+
+    from tests import oracle
+
+    def fmi(idx):
+        buf = io.BytesIO()
+        idx.save(buf)
+        return buf.getvalue()
+
+    text = oracle.repeat_heavy_dna(300_001, unit=97, seed=5)
+    sa = k_ordered_suffix_array(text, -1, device=cuda)
+    whole = fm.FMIndex(sa_intv=4, lookup_len=0, device=cuda).build(
+        text, sa=sa)
+    kernels.reset_launch_counts()
+    rows = fm.FMIndex(sa_intv=4, lookup_len=0, device=cuda).build_rows(
+        text, sa, full_sa=True, block_rows=65_537)
+    assert kernels.LAUNCHES["occ_tables"] == -(-len(sa) // 65_537)
+    assert fmi(rows) == fmi(whole)
 
 
 def test_build_rows_equals_whole_build_on_the_card(cuda):
