@@ -16,8 +16,9 @@ need and its time by CUDA events.
 flow on the CPU, where there are no device kernels to list.
 
 ``--only-k1`` prints K1's split alone and reaches K1 through nothing but
-``radix_sort_words``: this file put into a checkout of another commit
-measures that commit's K1, so two versions can be timed in one session.
+``radix_sort_words`` (its seed words from ``pack.seed_key_words``): this
+file put into a checkout of another commit that has K5 measures that
+commit's K1, so two versions can be timed in one session.
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ from kiss_tpu_torch.ops.radix_sort import (
 from kiss_tpu_torch.ops.suffix_sort import (
     _make_plan,
     _normalize_k,
-    _pack_fields,
     _run_plan,
 )
 from kiss_tpu_torch.utils.device import resolve_device
@@ -53,13 +53,7 @@ TAIL_SHAPE = (8, 1 << 20)  # a tail-refinement sort: 8 rank keys
 
 def seed_sort_words(text_dev):
     """The 5 words the seed sort hands K1 (64 raw chars + end/position)."""
-    n = text_dev.shape[0]
-    words, _ = _pack_fields(
-        [(w, 32, False) for w in pack.suffix_key_words_2bit(text_dev, 64, 0)]
-        + [(pack.fused_end_pos(n, 64, text_dev.device),
-            max(n.bit_length(), 1), True)]
-    )
-    return words
+    return pack.seed_key_words(text_dev, 64)
 
 
 def rank_like_words(shape, dev, seed=0, bits=26):

@@ -4,13 +4,15 @@ Port of ``kiss_tpu.models.fm_index`` (itself a re-design of the reference
 ``FMIndex<SA_INTV, uint32_t, Sorter>``, reference:
 include/biovoltron/algo/align/exact_match/fm_index.hpp:99-652):
 
-  - The build is whole-array tensor code: the BWT by the gather
-    ``text[sa - 1]``, the sampled SA by a boolean mask select. (The TPU
-    build used sorts in place of the gather and the select; the outputs
-    are the same.) The occurrence tables (occ1, occ2 and the fused
-    ``lf_tab``) come from the packed BWT words in one pass of kernel K6
-    (``csrc/occ_tables.cu``); :func:`occ_tables_plain`, masked popcounts
-    and exclusive scans, is its plain version.
+  - The build is tensor code over blocks of SA rows
+    (:func:`build_index_rows`; the whole SA is one block in
+    :func:`build_index_device`, and the mesh build gives each shard one):
+    the BWT by the gather ``text[sa - 1]``, the sampled SA by a boolean
+    mask select. (The TPU build used sorts in place of the gather and the
+    select; the outputs are the same.) The occurrence tables (occ1, occ2
+    and the fused ``lf_tab``) come from the packed BWT words in one pass
+    of kernel K6 (``csrc/occ_tables.cu``); :func:`occ_tables_plain`,
+    masked popcounts and exclusive scans, is its plain version.
   - Queries are batched: the backward search (kernel K2,
     ``csrc/fm_search.cu``) runs one thread per pattern; locate (kernel K3,
     ``csrc/fm_locate.cu``) walks each row to a sampled one, and its stats
@@ -328,58 +330,93 @@ def occ_tables(bwt_words: torch.Tensor, rows: int, pri: torch.Tensor,
 
 def build_index_device(text: torch.Tensor, sa: torch.Tensor, sa_intv: int):
     """text int8[n], sa int64[N=n+1] (same device) -> FMArrays (without
-    lookup). Mirrors build_occ/build_bwt/build_sa (reference:
-    fm_index.hpp:277-371) as whole-array tensor code."""
-    n = text.shape[0]
-    N = n + 1
-    dev = text.device
-    sa = sa.to(torch.int64)
+    lookup): :func:`build_index_rows` over the whole SA as one block."""
+    return build_index_rows(text, sa, sa_intv, block_rows=sa.shape[0])
 
-    # ---- BWT: bwt[i] = ref[sa[i]-1], 0 at the sentinel row
-    # (reference: fm_index.hpp:310-329)
-    tv = (text.view(torch.uint8) if text.dtype == torch.int8 else text).to(
-        torch.int64
-    )
-    bwt = torch.where(sa == 0, 0, tv[torch.clamp(sa - 1, min=0)])
-    pri = torch.argmin(sa)  # row with sa == 0
-    bwt_words = pack.pack_dibits_u32(bwt)
-    del bwt, tv
 
-    # ---- occ tables (reference: fm_index.hpp:277-308)
-    occ = occ_tables(bwt_words, N, pri,
-                     torch.zeros(4, dtype=torch.int64, device=dev))
-    # cnt[c] = 1 + sum of totals of smaller symbols (the +1 is the
-    # sentinel, reference: fm_index.hpp:303-307)
-    cnt = torch.cumsum(occ.totals, dim=0) - occ.totals + 1
+class BlockCounts(NamedTuple):
+    """What the tables of one block of rows are made from
+    (:func:`block_counts`)."""
 
-    # ---- sampled SA + marks (reference: fm_index.hpp:331-371)
+    words: torch.Tensor  # int32 bits [B / 16]: the BWT, 16 dibits a word
+    rows: int  # the block's rows before row N
+    at: torch.Tensor  # int64 scalar: the sentinel's row in the block, or -1
+    marks: torch.Tensor | None  # bool [B]: sampled rows (None: sa_intv 1)
+    pri: torch.Tensor  # int64 scalar: the sentinel's row if here, else 0
+
+
+def block_counts(row0: int, N: int, bwt: torch.Tensor, sa: torch.Tensor,
+                 sa_intv: int) -> BlockCounts:
+    """The counts of the rows [row0, row0 + B) of an index of N rows from
+    their BWT symbols (int8 [B]) and SA entries (int64, the block's first
+    B or fewer rows), on one device; row0 and B multiples of 256, so every
+    occ2 block, mark word and b_occ block lies in one block of rows. Rows
+    from N on are pads: BWT symbol 0, and SA 1 or no entry at all (never
+    the sentinel, never marked)."""
+    B = bwt.shape[0]
+    rows = min(max(N - row0, 0), B)
+    # the sentinel row packs as symbol 0 but counts as none
+    hit = sa == 0
+    here, first = hit.view(torch.uint8).max(dim=0)  # its first row, if any
+    here = here.bool()
+    marks = None
+    if sa_intv != 1:
+        marks = torch.zeros(B, dtype=torch.bool, device=bwt.device)
+        marks[:sa.shape[0]] = sa % sa_intv == 0
+    return BlockCounts(pack.pack_dibits_u32(bwt), rows,
+                       torch.where(here, first, -1), marks,
+                       torch.where(here, first + row0, 0))
+
+
+def block_tables(counts: BlockCounts, occ_off, mark_off):
+    """The table rows of one block of rows (occ1, occ2, lf_tab and, unless
+    the index samples every row, b_words, b_occ and b_tab, as a dict) and
+    the block's symbol totals (int64 [4], the sentinel counted as none)
+    from its :func:`block_counts`, given what the rows before it carry:
+    each symbol's count (``occ_off``, int64 [4] on the block's device) and
+    the marks (``mark_off``). The occurrence tables and the totals are
+    :func:`occ_tables`'."""
+    occ = occ_tables(counts.words, counts.rows, counts.at, occ_off,
+                     table_rows=counts.words.shape[0])
+    out = {"occ1": occ.occ1, "occ2": occ.occ2, "lf_tab": occ.lf_tab}
+    if counts.marks is not None:
+        shifts = torch.arange(32, dtype=torch.int64,
+                              device=counts.marks.device)
+        w = (counts.marks.reshape(-1, 32).to(torch.int64) << shifts).sum(1)
+        c64 = pack.popcount_u32(w[0::2]) + pack.popcount_u32(w[1::2])
+        b_occ = torch.cumsum(c64, dim=0) - c64 + mark_off
+        b_words = pack.to_u32_bits(w)
+        out.update(b_words=b_words, b_occ=b_occ,
+                   b_tab=_fuse_b_tab(b_occ, b_words))
+    return out, occ.totals
+
+
+def trim_canonical(arrays: FMArrays, N: int, sa_intv: int) -> FMArrays:
+    """Slice an FMArrays built in blocks of rows down to the canonical
+    (serialization-layout) row counts: occ1 N//256+1, occ2 and lf_tab
+    N//16+1, bwt words ceil(N/16), mark words 2*ceil(N/64), b_occ and
+    b_tab ceil(N/64) (reference layout: fm_index.hpp:106-148); an index
+    that samples every row keeps 1-row placeholders for the mark
+    structures."""
+    nb1 = N // OCC1_INTV + 1
+    nb2 = N // OCC2_INTV + 1
+    nw = -(-N // 16)
     if sa_intv == 1:
-        b_words = torch.zeros(1, dtype=torch.int32, device=dev)
-        b_occ = torch.zeros(1, dtype=torch.int64, device=dev)
-        sa_samp = sa
+        nbw, nbo = 1, 1
+        ns = N
     else:
-        b = sa % sa_intv == 0
-        # an even word count so _b_rank can always read a 64-bit block
-        # as two 32-bit words
-        nw = 2 * (-(-N // 64))
-        bp = torch.zeros(nw * 32, dtype=torch.int64, device=dev)
-        bp[:N] = b
-        shifts = torch.arange(32, device=dev)
-        b_words = pack.to_u32_bits(
-            (bp.reshape(nw, 32) << shifts[None, :]).sum(dim=1)
-        )
-        del bp
-        c64 = _blocked_counts_bool(b, B_OCC_INTV)
-        c64 = c64[: N // B_OCC_INTV + 1]
-        b_occ = torch.cumsum(c64, dim=0) - c64
-        # the marked rows in row order: the sampled SA (the TPU used a
-        # 2-operand sort for this compaction, fm_index.py:213-224)
-        sa_samp = sa[b]
-
-    lookup = torch.tensor([0, N], dtype=torch.int64, device=dev)
-    return FMArrays(
-        bwt_words, occ.occ1, occ.occ2, cnt, pri, sa_samp, b_words, b_occ,
-        lookup, occ.lf_tab, _fuse_b_tab(b_occ, b_words),
+        nbw = 2 * (-(-N // 64))
+        nbo = -(-N // B_OCC_INTV)
+        ns = -(-N // sa_intv)
+    return arrays._replace(
+        bwt_words=arrays.bwt_words[:nw],
+        occ1=arrays.occ1[:nb1],
+        occ2=arrays.occ2[:nb2],
+        sa_samp=arrays.sa_samp[:ns],
+        b_words=arrays.b_words[:nbw],
+        b_occ=arrays.b_occ[:nbo],
+        lf_tab=arrays.lf_tab[:nb2],
+        b_tab=arrays.b_tab[:nbo],
     )
 
 
@@ -407,27 +444,23 @@ def build_index_rows(text: torch.Tensor, sa, sa_intv: int = 4,
     """The index of ``text`` (int8 [n], on the device that builds) and its
     suffix array ``sa`` (N = n + 1 entries, uint32 values: a host numpy
     array as the out-of-core sorter returns it, or a tensor, also on the
-    card), built ``block_rows`` SA rows at a time. Equal to
-    :func:`build_index_device` (the same canonical tables, and so the same
-    ``.fmi`` bytes); where that build holds several int64 arrays of N rows
-    at once (about 330 GB at N = 3.1 G), this one holds the text, one
-    block's temporaries and the tables it fills.
+    card), built ``block_rows`` SA rows at a time, rounded up to a
+    multiple of 256 so that every block starts on an occ1 superblock:
+    the one place the BWT, the sentinel's row, the marks, the occurrence
+    tables, the sampled SA and ``b_tab`` are made
+    (:func:`build_index_device` is its one-block case). It holds the
+    text, one block's temporaries and the tables it fills.
 
     A block's rows are uploaded, their BWT symbols gathered from the text
-    (``text[sa - 1]``) and their marks made; the rows up to the last
-    256-row boundary become table rows by the blocks of the mesh build
-    (:func:`kiss_tpu_torch.parallel.fm_build.block_counts` and
-    ``block_tables``), each block's carrying what the rows before it
-    counted: each symbol's occurrences (occ1's offset, and ``cnt`` at the
-    end), the marks (b_occ's offset and the sampled SA's next slot) and the
-    sentinel's row. A block's last rows short of the boundary wait for the
-    next block, so any ``block_rows`` gives the same tables. The last rows
-    are padded to a multiple of 256 past row N (symbol 0, SA 1: never the
-    sentinel, never marked) and the tables cut to the canonical shapes.
-    Returns ``FMArrays`` with ``lf_tab`` and ``b_tab`` and the lookup
-    [0, N], on ``text``'s device."""
-    from kiss_tpu_torch.parallel import fm_build
-
+    (``text[sa - 1]``) and their tables made by :func:`block_counts` and
+    :func:`block_tables` (which the mesh build shares), each block's
+    carrying what the rows before it counted: each symbol's occurrences
+    (occ1's offset, and ``cnt`` at the end), the marks (b_occ's offset and
+    the sampled SA's next slot) and the sentinel's row. The last block
+    reaches past row N to the next multiple of 256 (BWT symbol 0, no SA
+    entry: never the sentinel, never marked), and the tables are cut to
+    the canonical shapes. Returns ``FMArrays`` with ``lf_tab`` and
+    ``b_tab`` and the lookup [0, N], on ``text``'s device."""
     n = text.shape[0]
     N = n + 1
     dev = text.device
@@ -436,6 +469,7 @@ def build_index_rows(text: torch.Tensor, sa, sa_intv: int = 4,
     if block_rows < 1:
         raise ValueError("block_rows must be at least 1")
     P = (N // OCC1_INTV + 1) * OCC1_INTV  # rows with the pads: row N's too
+    step = -(-block_rows // OCC1_INTV) * OCC1_INTV
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -445,12 +479,12 @@ def build_index_rows(text: torch.Tensor, sa, sa_intv: int = 4,
             "occ2": empty((P // OCC2_INTV, 4), torch.int32),
             "lf_tab": empty((P // OCC2_INTV, 5), torch.int32)}
     if sa_intv == 1:
-        for name, shape, dtype in (("b_words", P // 32, torch.int32),
-                                   ("b_occ", P // B_OCC_INTV, torch.int64),
-                                   ("b_tab", (P // B_OCC_INTV, 3),
-                                    torch.int32)):
+        # the SA is its own sample, and the marks are 1-row placeholders
+        sa = sa_samp = _sa_rows(sa, 0, N, dev)
+        for name, shape, dtype in (("b_words", 1, torch.int32),
+                                   ("b_occ", 1, torch.int64),
+                                   ("b_tab", (1, 3), torch.int32)):
             tabs[name] = torch.zeros(shape, dtype=dtype, device=dev)
-        sa_samp = empty(N, torch.int64)
     else:
         tabs.update(b_words=empty(P // 32, torch.int32),
                     b_occ=empty(P // B_OCC_INTV, torch.int64),
@@ -459,45 +493,35 @@ def build_index_rows(text: torch.Tensor, sa, sa_intv: int = 4,
     occ_off = torch.zeros(4, dtype=torch.int64, device=dev)
     pri = torch.zeros((), dtype=torch.int64, device=dev)
     marks_before = 0  # the sampled SA's next slot
-    row0 = 0  # the first row not yet in the tables
-    held_sa = torch.empty(0, dtype=torch.int64, device=dev)
-    held_bwt = torch.empty(0, dtype=torch.int8, device=dev)
-    for lo in range(0, N, block_rows):
-        hi = min(lo + block_rows, N)
+    # bwt[i] = ref[sa[i] - 1], 0 at the sentinel row (reference:
+    # fm_index.hpp:310-329): one gather from the text shifted by one
+    prev = text.new_zeros(n + 1)
+    prev[1:] = text
+    for lo in range(0, N, step):
+        hi = min(lo + step, N)
         rows_sa = _sa_rows(sa, lo, hi, dev)
-        bwt = torch.where(rows_sa == 0, 0,
-                          text[torch.clamp(rows_sa - 1, min=0)])
-        rows_sa = torch.cat([held_sa, rows_sa])
-        bwt = torch.cat([held_bwt, bwt])
-        if hi == N:
-            pad = P - row0 - rows_sa.shape[0]
-            rows_sa = torch.cat([rows_sa, rows_sa.new_ones(pad)])
-            bwt = torch.cat([bwt, bwt.new_zeros(pad)])
-        take = rows_sa.shape[0] // OCC1_INTV * OCC1_INTV
-        held_sa, held_bwt = rows_sa[take:], bwt[take:]
-        if take == 0:
-            continue
-        rows_sa, bwt = rows_sa[:take], bwt[:take]
-        counts = fm_build.block_counts(row0, N, bwt, rows_sa, sa_intv)
-        block = fm_build.block_tables(counts, occ_off, marks_before)
+        bwt = text.new_zeros((P if hi == N else hi) - lo)  # pads: symbol 0
+        bwt[:hi - lo] = prev[rows_sa]
+        counts = block_counts(lo, N, bwt, rows_sa, sa_intv)
+        block, totals = block_tables(counts, occ_off, marks_before)
         block["bwt_words"] = counts.words
         for name, x in block.items():
-            step = P // tabs[name].shape[0]  # rows a table row spans
-            tabs[name][row0 // step : (row0 + take) // step] = x
-        occ_off += counts.totals
+            span = P // tabs[name].shape[0]  # rows a table row spans
+            tabs[name][lo // span : lo // span + x.shape[0]] = x
+        occ_off += totals
         pri += counts.pri
-        if sa_intv == 1:
-            m = min(take, N - row0)
-            sa_samp[row0 : row0 + m] = rows_sa[:m]
-        else:
-            picked = rows_sa[counts.marks]
+        if sa_intv != 1:
+            # the marked rows in row order: the sampled SA (the TPU used a
+            # 2-operand sort for this compaction, fm_index.py:213-224)
+            picked = rows_sa[counts.marks[:hi - lo]]
             sa_samp[marks_before : marks_before + picked.shape[0]] = picked
             marks_before += picked.shape[0]
-        row0 += take
         del counts, block, rows_sa, bwt
+    # cnt[c] = 1 + the counts of the smaller symbols (the +1 is the
+    # sentinel, reference: fm_index.hpp:303-307)
     cnt = torch.cumsum(occ_off, dim=0) - occ_off + 1
     lookup = torch.tensor([0, N], dtype=torch.int64, device=dev)
-    return fm_build.trim_canonical(
+    return trim_canonical(
         FMArrays(cnt=cnt, pri=pri, sa_samp=sa_samp, lookup=lookup, **tabs),
         N, sa_intv)
 
@@ -530,14 +554,6 @@ def _fuse_b_tab(b_occ, b_words) -> torch.Tensor:
     return pack.to_u32_bits(
         torch.stack([b_occ.to(torch.int64), w[0::2], w[1::2]], dim=1)
     )
-
-
-def _blocked_counts_bool(flags: torch.Tensor, block: int) -> torch.Tensor:
-    n = flags.shape[0]
-    nblk = -(-n // block)
-    fp = torch.zeros(nblk * block, dtype=torch.int64, device=flags.device)
-    fp[:n] = flags
-    return fp.reshape(nblk, block).sum(dim=1)
 
 
 # ---------------------------------------------------------------------------

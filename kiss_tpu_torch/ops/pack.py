@@ -241,9 +241,9 @@ def seed_key_words_plain(text: torch.Tensor, seed_chars: int, *,
     fused end/position word (:func:`fused_end_pos`) as int32 [W, rows], W =
     ceil(seed_chars / 16) + 1, the layout the seed sort hands K1: the raw
     words whole, the fused word masked to fbits = max(bit_length(n), 1)
-    bits and shifted to the top of its word (the aligned placement
-    ``suffix_sort._field_layout`` gives it). ``start``, ``n`` and ``rows``
-    give the block form of :func:`suffix_key_words_2bit`."""
+    bits and shifted to the top of its word (:func:`decode_seed_keys`
+    reads it back). ``start``, ``n`` and ``rows`` give the block form of
+    :func:`suffix_key_words_2bit`."""
     if n is None:
         n = text.shape[0]
     if rows is None:
@@ -299,6 +299,17 @@ def seed_key_words(text: torch.Tensor, seed_chars: int) -> torch.Tensor:
     return out
 
 
+def decode_seed_keys(words: torch.Tensor, n: int, seed_chars: int):
+    """The rows of seed key words (int32 [W, rows] in the layout of
+    :func:`seed_key_words`, in any order: as a sort leaves them) of a text
+    of ``n`` characters -> (each row's suffix position p, its clamped
+    length min(n - p, seed_chars)), int64, from the fused end/position
+    word at the top of the last word (:func:`fused_end_pos`'s decode)."""
+    fused = as_u32(words[-1]) >> (32 - max(int(n).bit_length(), 1))
+    pos = torch.where(fused < seed_chars, n - fused, fused - seed_chars)
+    return pos, torch.clamp(fused, max=seed_chars)
+
+
 # ---------------------------------------------------------------------------
 # 2-bit symbol packing (BWT storage / occ rank words)
 # ---------------------------------------------------------------------------
@@ -319,7 +330,8 @@ def pack_dibits_u32(values: torch.Tensor) -> torch.Tensor:
     n = values.shape[0]
     npad = -(-n // SYMS_PER_U32) * SYMS_PER_U32
     v = torch.zeros(npad, dtype=torch.int64, device=values.device)
-    v[:n] = _text_values(values)
+    # one widening copy (uint8 view first, as _text_values)
+    v[:n] = values.view(torch.uint8) if values.dtype == torch.int8 else values
     v = v.reshape(-1, SYMS_PER_U32)
     acc = v[:, 0].clone()
     for j in range(1, SYMS_PER_U32):

@@ -48,8 +48,8 @@ MAX_RANK_KEYS = 8  # widest rank-block sort; coverage multiplies by this
 def _seed_max(alphabet: pack.Alphabet) -> int:
     """Widest seed the seed sort covers in SEED_WORDS raw words. DNA uses
     the 2-bit fast path (16 chars/word; end-of-text + position fused into
-    ONE extra word by :func:`pack.fused_end_pos`), so 64 chars cost 5
-    sort words."""
+    ONE extra word, :func:`pack.seed_key_words`), so 64 chars cost 5 sort
+    words."""
     if alphabet is pack.DNA:
         return SEED_WORDS * 16
     return SEED_WORDS * alphabet.chars_per_word
@@ -329,9 +329,10 @@ def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
     (i.e. the seed alone covers k).
 
     Raw 2-bit packed words (16 chars per word) plus ONE word fusing the
-    end-of-text rule with the position (:func:`pack.fused_end_pos`), run
-    as one total-order sort: 5 words for the standard 64-char seed. The
-    words come from :func:`pack.seed_key_words` (kernel K5 on a card).
+    end-of-text rule with the position, run as one total-order sort: 5
+    words for the standard 64-char seed. The words come from
+    :func:`pack.seed_key_words` (kernel K5 on a card) and are read back by
+    :func:`pack.decode_seed_keys`.
     """
     n = text.shape[0]
     if alphabet is not pack.DNA:
@@ -349,22 +350,12 @@ def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
             return sa, sa, True
         rank, done = _ranks_of_sorted(list(ops[:-1]), sa)
         return sa, rank, done
-    packed = pack.seed_key_words(text, seed_chars)
-    places, _ = _field_layout(
-        [(32, False)] * (packed.shape[0] - 1)
-        + [(max(int(n).bit_length(), 1), True)]
-    )
-    ops, _ = sort_impl(packed)
-    del packed
-    fused_s = _extract_field(ops, places[-1])
-    sa = torch.where(
-        fused_s < seed_chars, n - fused_s, fused_s - seed_chars
-    )
+    ops, _ = sort_impl(pack.seed_key_words(text, seed_chars))
+    sa, lenc = pack.decode_seed_keys(ops, n, seed_chars)
     if not with_rank:
         return sa, sa, True
-    # group identity = raw key words + clamped length (decoded from the
-    # fused word; its position part must NOT split groups)
-    lenc = torch.clamp(fused_s, max=seed_chars)
+    # group identity = raw key words + clamped length (the fused word's
+    # position part must NOT split groups)
     rank, done = _ranks_of_sorted(list(ops[:-1]) + [lenc], sa)
     return sa, rank, done
 

@@ -1,8 +1,9 @@
 """Sharded FM-index build, PyTorch port.
 
-Port of ``kiss_tpu.parallel.fm_build``: the single-device build
-(:func:`kiss_tpu_torch.models.fm_index.build_index_device`) with its
-tables made block by block over the mesh:
+Port of ``kiss_tpu.parallel.fm_build``: the models layer's blocked
+build (:func:`kiss_tpu_torch.models.fm_index.build_index_rows`) with one
+block of rows a shard, each block's tables made by the same
+``block_counts`` and ``block_tables``:
 
   - **BWT without a global gather.** ``prev = sa - 1`` over the
     non-sentinel rows is a permutation of [0, n), so after a mesh sort of
@@ -36,6 +37,11 @@ import numpy as np
 import torch
 
 from kiss_tpu_torch.models import fm_index as fm
+from kiss_tpu_torch.models.fm_index import (
+    block_counts,
+    block_tables,
+    trim_canonical,
+)
 from kiss_tpu_torch.ops import pack
 from kiss_tpu_torch.parallel.dsort import sort_blocks
 from kiss_tpu_torch.parallel.fm_sharded import ShardedArrays, sharded_get_ranges
@@ -70,61 +76,6 @@ class ShardedTables(NamedTuple):
 _ROW_TABLES = ShardedTables._fields[:8]
 
 
-class BlockCounts(NamedTuple):
-    """What the tables of one block of rows are made from
-    (:func:`block_counts`)."""
-
-    words: torch.Tensor  # int32 bits [B / 16]: the BWT, 16 dibits a word
-    rows: int  # the block's rows before row N
-    at: torch.Tensor  # int64 scalar: the sentinel's row in the block, or -1
-    totals: torch.Tensor  # int64 [4]: the block's symbols (sentinel: none)
-    marks: torch.Tensor | None  # bool [B]: sampled rows (None: sa_intv 1)
-    pri: torch.Tensor  # int64 scalar: the sentinel's row if here, else 0
-
-
-def block_counts(row0: int, N: int, bwt: torch.Tensor, sa: torch.Tensor,
-                 sa_intv: int) -> BlockCounts:
-    """The counts of the rows [row0, row0 + B) of an index of N rows from
-    their BWT symbols and SA entries (int8 and int64 [B], on one device;
-    row0 and B multiples of 256, so every occ2 block, mark word and b_occ
-    block lies in one block of rows). Rows from N on are pads: BWT symbol
-    0, SA 1 (never the sentinel, never marked)."""
-    dev = bwt.device
-    B = bwt.shape[0]
-    rows = min(max(N - row0, 0), B)
-    gidx = row0 + torch.arange(B, dtype=torch.int64, device=dev)
-    # the sentinel row packs as symbol 0 but counts as none
-    is_pri = (gidx < N) & (sa == 0)
-    totals = torch.stack([(bwt[:rows] == c).sum() for c in range(4)])
-    totals[0] -= is_pri.sum()
-    at = torch.where(is_pri, gidx - row0 + 1, 0).sum() - 1
-    marks = None if sa_intv == 1 else (gidx < N) & (sa % sa_intv == 0)
-    return BlockCounts(pack.pack_dibits_u32(bwt), rows, at, totals, marks,
-                       torch.where(is_pri, gidx, 0).sum())
-
-
-def block_tables(counts: BlockCounts, occ_off, mark_off) -> dict:
-    """The table rows of one block of rows (occ1, occ2, lf_tab and, unless
-    the index samples every row, b_words, b_occ and b_tab; the fields of
-    :class:`ShardedTables`) from its :func:`block_counts`, given what the
-    rows before it carry: each symbol's count (``occ_off``, int64 [4] on
-    the block's device) and the marks (``mark_off``). The occurrence
-    tables are :func:`kiss_tpu_torch.models.fm_index.occ_tables`'."""
-    occ = fm.occ_tables(counts.words, counts.rows, counts.at, occ_off,
-                        table_rows=counts.words.shape[0])
-    out = {"occ1": occ.occ1, "occ2": occ.occ2, "lf_tab": occ.lf_tab}
-    if counts.marks is not None:
-        b = counts.marks
-        shifts = torch.arange(32, dtype=torch.int64, device=b.device)
-        b_words = (b.reshape(-1, 32).to(torch.int64) << shifts).sum(dim=1)
-        c64 = b.reshape(-1, fm.B_OCC_INTV).sum(dim=1)
-        b_occ = torch.cumsum(c64, dim=0) - c64 + mark_off
-        out.update(b_words=pack.to_u32_bits(b_words), b_occ=b_occ,
-                   b_tab=pack.to_u32_bits(torch.stack(
-                       [b_occ, b_words[0::2], b_words[1::2]], dim=1)))
-    return out
-
-
 def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
     """Blocks of the BWT symbols and the SA (one each a local shard) ->
     each shard's tables (a dict of lists over the local shards: words,
@@ -135,7 +86,13 @@ def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
     counts = [block_counts(s * blk, N, bwt, sa, sa_intv)
               for s, bwt, sa in zip(mesh.local, bwt_blocks, sa_blocks)]
     pri = mesh.psum([c.pri for c in counts])
-    dev_tots = [c.totals for c in counts]
+    # each shard's symbols (the sentinel: none), which its tables' offsets
+    # need before they are made
+    dev_tots = []
+    for bwt, c in zip(bwt_blocks, counts):
+        t = torch.stack([(bwt[:c.rows] == sym).sum() for sym in range(4)])
+        t[0] -= (c.at >= 0).to(torch.int64)
+        dev_tots.append(t)
     offsets = mesh.exclusive_scan(dev_tots)
     totals = mesh.psum(dev_tots)
     cnt = torch.cumsum(totals, dim=0) - totals + 1
@@ -147,7 +104,7 @@ def _occ_body(mesh, N: int, sa_intv: int, bwt_blocks, sa_blocks):
     out = {name: [] for name in ("words", "occ1", "occ2", "lf_tab",
                                  "b_words", "b_occ", "b_tab", "samp_key")}
     for s, c, off, moff in zip(mesh.local, counts, offsets, mark_offsets):
-        tabs = block_tables(c, off, moff)
+        tabs, _ = block_tables(c, off, moff)
         out["words"].append(c.words)
         for name in ("occ1", "occ2", "lf_tab"):
             out[name].append(tabs[name])
@@ -279,33 +236,3 @@ def build_index_sharded(mesh, text, sa, sa_intv: int = 4) -> fm.FMArrays:
         cnt=tables.cnt, pri=tables.pri, lookup=lookup,
         **{name: mesh.join(getattr(tables, name), dim=0)
            for name in _ROW_TABLES})
-
-
-def trim_canonical(arrays: fm.FMArrays, N: int, sa_intv: int) -> fm.FMArrays:
-    """Slice a sharded-built FMArrays down to the canonical
-    (serialization-layout) row counts of the single-device build: occ1
-    N//256+1, occ2 and lf_tab N//16+1, bwt words ceil(N/16), mark words
-    2*ceil(N/64), b_occ and b_tab ceil(N/64) (reference layout:
-    fm_index.hpp:106-148)."""
-    nb1 = N // fm.OCC1_INTV + 1
-    nb2 = N // fm.OCC2_INTV + 1
-    nw = -(-N // 16)
-    if sa_intv == 1:
-        # the single-device build keeps 1-row placeholders for the mark
-        # structures when the SA is unsampled
-        nbw, nbo = 1, 1
-        ns = N
-    else:
-        nbw = 2 * (-(-N // 64))
-        nbo = -(-N // fm.B_OCC_INTV)
-        ns = -(-N // sa_intv)
-    return arrays._replace(
-        bwt_words=arrays.bwt_words[:nw],
-        occ1=arrays.occ1[:nb1],
-        occ2=arrays.occ2[:nb2],
-        sa_samp=arrays.sa_samp[:ns],
-        b_words=arrays.b_words[:nbw],
-        b_occ=arrays.b_occ[:nbo],
-        lf_tab=arrays.lf_tab[:nb2],
-        b_tab=arrays.b_tab[:nbo],
-    )

@@ -12,8 +12,8 @@ dsort.sort_blocks`, whose local sorts are kernel K1 on the block's device.
 
   1. **Seed.** Each shard packs its rows' key words from its text block
      and the next seed_chars - 1 characters (:meth:`Mesh.window`), at its
-     global positions: the 2-bit words and ``fused_end_pos`` in their
-     block form, ``_pack_fields`` per block.
+     global positions: the block form of ``pack.seed_key_words_plain``,
+     read back by ``pack.decode_seed_keys``.
   2. **Rounds.** A rank key at offset c is the rank blocks shifted by c
      (:meth:`Mesh.shift`: two ppermutes, any c); raw tail words come from
      the text shifted by the tail offset and widened by the tail's halo.
@@ -134,30 +134,20 @@ class _Pipeline:
         fused end/position word of each shard's rows, one total-order
         sort. Returns (sa blocks, rank blocks, done)."""
         n, B = self.n, self.B
-        fbits = max(int(n).bit_length(), 1)
         wins = self.mesh.window(self.text, seed_chars - 1)
-        keys = []
-        for s, w in zip(self.mesh.local, wins):
-            words2 = pack.suffix_key_words_2bit(w, seed_chars, 0, start=s * B,
-                                                n=n, rows=B)
-            fused = pack.fused_end_pos(n, seed_chars, w.device, start=s * B,
-                                       rows=B)
-            packed, places = ss._pack_fields(
-                [(x, 32, False) for x in words2] + [(fused, fbits, True)])
-            keys.append(packed)
-            del words2, fused
+        keys = [pack.seed_key_words_plain(w, seed_chars, start=s * B, n=n,
+                                          rows=B)
+                for s, w in zip(self.mesh.local, wins)]
         del wins
         sorted_ = self.sort(keys)
         del keys
         sas, groups, rids = [], [], []
         for ops, rid in sorted_:
-            fused_s = ss._extract_field(ops, places[-1])
-            sas.append(self.sa_of(torch.where(
-                fused_s < seed_chars, n - fused_s, fused_s - seed_chars), rid))
+            pos, lenc = pack.decode_seed_keys(ops, n, seed_chars)
+            sas.append(self.sa_of(pos, rid))
             # group identity: raw key words + the clamped length (the
             # position part of the fused word must not split groups)
-            groups.append(list(ops[:-1])
-                          + [torch.clamp(fused_s, max=seed_chars)])
+            groups.append(list(ops[:-1]) + [lenc])
             rids.append(rid)
         del sorted_
         if not with_rank:

@@ -4,14 +4,14 @@ where it runs its plain version:
 - ``occ_tables_plain`` against frozen copies of the expressions the two
   builders wrote before the helper (the whole-array build's
   ``_word_symbol_counts`` and occ scans, and the row-blocked build's
-  ``block_counts`` / ``block_tables``), table for table, at row counts on
+  ``fm_index.block_counts`` / ``block_tables``), table for table, at row counts on
   both sides of multiples of 16, 256 and 65,536, the sentinel in the first
   word, a middle superblock and the last word, and with block offsets;
 - ``_fuse_lf_tab`` (what ``FMIndex.load`` fuses) of the helper's occ1 and
   occ2 is its lf_tab;
 - the three builders (``build_index_device``, ``build_index_rows`` at
   several block sizes, the mesh build) write the same ``.fmi`` bytes as
-  ``kiss_tpu``.
+  ``kiss_tpu``, at sa_intv 4 and 1.
 
 Every comparison is exact (integers, tolerance 0). The kernel itself (K6,
 ``csrc/occ_tables.cu``) is held to the plain version on the card in
@@ -163,13 +163,13 @@ def test_plain_is_the_block_builds_expressions(row0, B, N, pri):
         sa[pri - row0] = 0
         bwt[pri - row0] = 0
     occ_off = torch.tensor([2**31 + 7, 123_456, 2**32 - 5, 9])
-    counts = fm_build.block_counts(row0, N, bwt, sa, 4)
-    got = fm_build.block_tables(counts, occ_off, 0)
+    counts = fm.block_counts(row0, N, bwt, sa, 4)
+    got, totals = fm.block_tables(counts, occ_off, 0)
     occ1, occ2, lf, c16_sum = _frozen_block(row0, N, bwt, sa, occ_off)
     assert torch.equal(got["occ1"], occ1)
     assert torch.equal(got["occ2"], occ2)
     assert torch.equal(got["lf_tab"], lf)
-    assert torch.equal(counts.totals, c16_sum)
+    assert torch.equal(totals, c16_sum)
     assert counts.rows == min(max(N - row0, 0), B)
     assert int(counts.at) == (-1 if pri is None else pri - row0)
     plain = fm.occ_tables_plain(counts.words, counts.rows, counts.at,
@@ -194,26 +194,30 @@ def _fmi(idx) -> bytes:
     return buf.getvalue()
 
 
-# N = 5001; N = 4096 (a multiple of 16, 64 and 256); N = 65,536
-@pytest.mark.parametrize("n", [5000, 4095, 65535])
-def test_three_builders_write_kiss_tpus_fmi(n):
+# N = 5001; N = 4096 (a multiple of 16, 64 and 256); N = 65,536; and an
+# index that samples every row
+@pytest.mark.parametrize("n,sa_intv", [(5000, 4), (4095, 4), (65535, 4),
+                                       (5000, 1)],
+                         ids=["5000", "4095", "65535", "5000-sa_intv1"])
+def test_three_builders_write_kiss_tpus_fmi(n, sa_intv):
     text = oracle.repeat_heavy_dna(n, unit=41, seed=n)
     N = n + 1
     sa = k_ordered_suffix_array(text, -1, device="cpu")
-    j = jfm.FMIndex(sa_intv=4, lookup_len=0).build(text, sa=sa)
+    j = jfm.FMIndex(sa_intv=sa_intv, lookup_len=0).build(text, sa=sa)
     j.full_sa = False
     want = _fmi(j)
-    whole = fm.FMIndex(sa_intv=4, lookup_len=0, device="cpu").build(
+    whole = fm.FMIndex(sa_intv=sa_intv, lookup_len=0, device="cpu").build(
         text, sa=sa)
     whole.full_sa = False
     assert _fmi(whole) == want
     for block_rows in (1000, 4097, 1 << 20):
-        rows = fm.FMIndex(sa_intv=4, lookup_len=0, device="cpu").build_rows(
+        rows = fm.FMIndex(sa_intv=sa_intv, lookup_len=0,
+                          device="cpu").build_rows(
             text, sa, full_sa=False, block_rows=block_rows)
         assert _fmi(rows) == want, block_rows
-    mesh = fm_build.trim_canonical(
+    mesh = fm.trim_canonical(
         fm_build.build_index_sharded(make_mesh(3, device="cpu"), text,
                                      torch.from_numpy(sa.astype(np.int64)),
-                                     4), N, 4)
-    assert _fmi(fm.FMIndex(sa_intv=4, lookup_len=0, arrays=mesh, n_rows=N,
-                           device="cpu")) == want
+                                     sa_intv), N, sa_intv)
+    assert _fmi(fm.FMIndex(sa_intv=sa_intv, lookup_len=0, arrays=mesh,
+                           n_rows=N, device="cpu")) == want

@@ -82,7 +82,8 @@ def test_seed_key_words_plain_is_the_packed_chain(seed_chars, n, kind):
     """K5's plain version, bit for bit the chain the seed sort ran before
     it: the raw 2-bit words and the fused end/position word through
     ``_pack_fields``, also for n below seed_chars and for bytes above 3
-    (which spill into their neighbours' lanes)."""
+    (which spill into their neighbours' lanes); and ``decode_seed_keys``
+    gives each row's position and clamped length back."""
     from kiss_tpu_torch.ops.suffix_sort import _pack_fields
 
     text = torch.from_numpy(_seed_text(kind, n))
@@ -98,6 +99,11 @@ def test_seed_key_words_plain_is_the_packed_chain(seed_chars, n, kind):
     assert places[-1][0] == 32 * (got.shape[0] - 1)  # the fused word's own
     # on a CPU tensor the wrapper is the plain version
     assert torch.equal(pack.seed_key_words(text, seed_chars), got)
+    # the layout's one decoder, on the rows in any order
+    perm = torch.randperm(n + 1, generator=torch.Generator().manual_seed(n))
+    pos, length = pack.decode_seed_keys(got[:, perm], n, seed_chars)
+    assert torch.equal(pos, perm)
+    assert torch.equal(length, torch.clamp(n - perm, max=seed_chars))
     # the block form: the rows of a window, as the whole text's
     if n >= 16:
         start, rows = n // 3, n // 2
