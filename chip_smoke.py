@@ -1088,7 +1088,7 @@ def _place_short_suffixes(torch, sorted_keys, perm, n: int):
     from kiss_tpu_torch.ops.suffix_sort import _compact_rows
 
     N = n + 1
-    short_rows = _compact_rows(perm >= n - 15, 16)
+    short_rows = _compact_rows(perm >= n - 15)
     pos = perm[short_rows]
     words = pack.as_u32(sorted_keys[0, short_rows])
     order = sorted(range(16), key=lambda i: (int(words[i]), -int(pos[i])))
@@ -1677,6 +1677,7 @@ def main() -> int:
         _normalize_k,
         _run_plan,
         k_ordered_suffix_array,
+        k_ordered_suffix_array_device,
     )
     from kiss_tpu_torch.utils import codec, fasta
     from kiss_tpu_torch.utils.synth import sample_patterns, synth_genome
@@ -1798,7 +1799,12 @@ def main() -> int:
         return got
 
     for k in (256, -1):
-        sort_with(compared_sort, k)
+        # the rounds on the tied rows alone against every round over the
+        # whole array
+        check(torch.equal(sort_with(compared_sort, k),
+                          k_ordered_suffix_array_device(text_dev, k)),
+              f"k={k}: the tied-row rounds' SA differs from the whole-array "
+              "rounds' SA")
 
     def compare_ranges(q):
         got = fm.get_range_packed_device(arrays, q, QLEN, L, blocks=blocks)
@@ -1840,7 +1846,8 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"kernels vs plain at the main path's shapes (exact, tolerance 0): "
         f"K1 on all {len(sort_calls)} sort calls of k=256 and k=-1 at "
-        f"n={N_TEXT} (W, N, digit passes: {sort_calls}); K2 and K3 stats on "
+        f"n={N_TEXT} (W, N, digit passes: {sort_calls}), their SAs equal to "
+        f"the whole-array rounds'; K2 and K3 stats on "
         f"{len(chunk_stats)} chunks of {CLI_CHUNK} x {QLEN} and the "
         f"{N_QUERIES}-query batch, lookup {L}; K3 rows on the -q rows "
         f"({rows.shape[0]}) and {N_QUERIES} random rows: all equal")

@@ -94,23 +94,32 @@ class Run:
 
 def plan_text(n: int, k: int, strategy: str) -> str:
     """The sort plan at (n, k): seed characters, then each round's rank
-    keys (level@offset) and raw tail characters; an unbounded plan shows
-    the full rounds before the tail refinement takes over."""
+    keys (level@offset) and raw tail characters, and where a round sorts
+    only the rows still tied: an unbounded plan's rounds run over the
+    whole array only while more than ``_TIED_SHARE_MAX`` of the rows are
+    tied, then the tail refinement takes over."""
     seed_chars, max_keys = suffix_sort._plan_shape(strategy, pack.DNA)
     plan = suffix_sort._make_plan(n, suffix_sort._normalize_k(k), pack.DNA,
                                   seed_chars, max_keys)
-    rounds = plan.rounds
-    if plan.unbounded:
-        rounds = rounds[: suffix_sort._FULL_ROUNDS_BEFORE_TAIL]
+    share = f"{suffix_sort._TIED_SHARE_MAX:.0%}"
     parts = [f"seed {plan.seed_chars} chars"]
-    for i, r in enumerate(rounds):
+    if plan.unbounded:
+        parts.append(f"while more than {share} of the rows are tied, rounds"
+                     f" of {max_keys} rank keys over the whole array (cover"
+                     f" x{max_keys}); then the tail refinement"
+                     f" ({suffix_sort.MAX_RANK_KEYS} rank keys a round, on"
+                     " the rows still tied)")
+        return "; ".join(parts)
+    cover = plan.seed_chars
+    for i, r in enumerate(plan.rounds):
         keys = " ".join(f"{lv}@{off}" for lv, off in r.rank_keys)
         tail = f" + {r.tail_chars} tail chars" if r.tail_chars else ""
+        tied = (f", on the rows still tied where at most {share} are"
+                if i == len(plan.rounds) - 1 and suffix_sort._is_full(r, cover)
+                else "")
         parts.append(f"round {i + 1}: {len(r.rank_keys)} rank keys ({keys})"
-                     f"{tail} -> {r.new_cover}")
-    if plan.unbounded:
-        parts.append(f"then the tail refinement ({suffix_sort.MAX_RANK_KEYS}"
-                     " rank keys a round, on the rows still tied)")
+                     f"{tail} -> {r.new_cover}{tied}")
+        cover = r.new_cover
     return "; ".join(parts)
 
 

@@ -19,8 +19,12 @@ ties at >= k chars resolved by ``i < j``) with the same round plan:
   4. Exact-k remainders smaller than a block are closed with saved rank
      levels and raw packed words.
 
-Unbounded k (-1) runs one full-array round, then refines only the
-suffixes still in tie groups (``_tail_refine``) until none is left.
+A round re-sorts only the suffixes still in tie groups, compacted, when
+they are few (at most ``_TIED_SHARE_MAX`` of the rows; the seed's own
+adjacent compare flags them): unbounded k (-1) then refines them
+(``_tail_refine``) until none is left, and a bounded plan's last round,
+where it is full, sorts them once (``_tied_round``). Above that share a
+round sorts the whole array.
 
 Every multi-word sort goes through ``sort_impl``, by default the
 hand-written CUDA radix sort (:func:`radix_sort_words`, kernel K1; more
@@ -301,18 +305,24 @@ def _group_heads(neq: torch.Tensor) -> torch.Tensor:
 
 
 def _ranks_of_sorted(sorted_keys, sa: torch.Tensor):
-    """(position-major rank, all-singleton flag) from a sorted key set:
-    group heads by an adjacent compare and a running head, then the
-    scatter rank[sa] = head + 1."""
+    """(position-major rank, row-space flags of the rows in tie groups)
+    from a sorted key set: group heads by an adjacent compare and a
+    running head, then the scatter rank[sa] = head + 1."""
     N = sa.shape[0]
     neq = _neq_adjacent(sorted_keys)
     head = _group_heads(neq)
     rank = torch.empty(N, dtype=torch.int64, device=sa.device)
     rank[sa] = head + 1
-    nxt = torch.ones_like(neq)
-    nxt[:-1] = neq[1:]
-    done = torch.all(neq & nxt)
-    return rank, done
+    del head
+    return rank, _tied_flags(neq)
+
+
+def _tied_flags(neq: torch.Tensor) -> torch.Tensor:
+    """Rows that share their group with a neighbour: neither the row nor
+    the next one starts a group (``neq`` from :func:`_neq_adjacent`)."""
+    tied = torch.ones_like(neq)
+    tied[:-1] = neq[1:]
+    return tied.logical_and_(neq).logical_not_()
 
 
 # ---------------------------------------------------------------------------
@@ -325,8 +335,9 @@ def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
     """Sort of all n+1 suffixes by the first ``seed_chars`` characters
     (shorter-first at end of text, then ascending position -- the full
     reference comparator contract, kiss1_core.hpp:94-135). Returns
-    (sa, rank, done); rank/done are dummies when ``with_rank`` is False
-    (i.e. the seed alone covers k).
+    (sa, rank, tied) with the tied rows' flags (:func:`_ranks_of_sorted`);
+    rank and tied are None when ``with_rank`` is False (i.e. the seed
+    alone covers k).
 
     Raw 2-bit packed words (16 chars per word) plus ONE word fusing the
     end-of-text rule with the position, run as one total-order sort: 5
@@ -347,17 +358,15 @@ def _seed_sort(text, seed_chars: int, alphabet, with_rank: bool,
         del keys
         sa = pack.as_u32(ops[-1])
         if not with_rank:
-            return sa, sa, True
-        rank, done = _ranks_of_sorted(list(ops[:-1]), sa)
-        return sa, rank, done
+            return sa, None, None
+        return (sa, *_ranks_of_sorted(list(ops[:-1]), sa))
     ops, _ = sort_impl(pack.seed_key_words(text, seed_chars))
     sa, lenc = pack.decode_seed_keys(ops, n, seed_chars)
     if not with_rank:
-        return sa, sa, True
+        return sa, None, None
     # group identity = raw key words + clamped length (the fused word's
     # position part must NOT split groups)
-    rank, done = _ranks_of_sorted(list(ops[:-1]) + [lenc], sa)
-    return sa, rank, done
+    return (sa, *_ranks_of_sorted(list(ops[:-1]) + [lenc], sa))
 
 
 def _full_round(text, rank, cover: int, n_keys: int, with_rank: bool,
@@ -378,19 +387,8 @@ def _full_round(text, rank, cover: int, n_keys: int, with_rank: bool,
     del packed
     sa = _extract_field(ops, places[-1])
     if not with_rank:
-        return sa, sa, True
-    rank2, done = _ranks_of_sorted(_mask_field(ops, places[-1]), sa)
-    return sa, rank2, done
-
-
-def _active_rows_of(sa, rank):
-    """Row-space flags + count of suffixes in unresolved tie groups."""
-    key_sorted = rank[sa]
-    neq = _neq_adjacent((key_sorted,))
-    nxt = torch.ones_like(neq)
-    nxt[:-1] = neq[1:]
-    active = ~(neq & nxt)
-    return active, int(active.sum())
+        return sa, None, None
+    return (sa, *_ranks_of_sorted(_mask_field(ops, places[-1]), sa))
 
 
 # flags one nonzero call of _compact_rows reads: each call's input stays
@@ -399,45 +397,48 @@ def _active_rows_of(sa, rank):
 _COMPACT_CHUNK = 1 << 30
 
 
-def _compact_rows(active, capacity: int):
-    """Ascending active row ids zero-filled to ``capacity`` (the dataflow
-    form of kISS-2's compact, reference: kiss2_core.hpp:464-536). Fill
-    entries alias row 0 -- the sentinel row, whose rank 1 is the global
-    minimum, so the refinement sort parks them at the front and their
-    writes re-store the unchanged sentinel. The flags are read in chunks
-    of ``_COMPACT_CHUNK``, each chunk's ids offset by its start, until
-    ``capacity`` ids are found."""
-    rows = torch.zeros(capacity, dtype=torch.int64, device=active.device)
-    found = 0
-    for lo in range(0, active.shape[0], _COMPACT_CHUNK):
-        if found == capacity:
-            break
-        ids = torch.nonzero(active[lo : lo + _COMPACT_CHUNK]).flatten()
-        ids = ids[: capacity - found] + lo
-        rows[found : found + ids.shape[0]] = ids
-        found += ids.shape[0]
-    return rows
+def _compact_rows(flags: torch.Tensor) -> torch.Tensor:
+    """Ascending ids of the set flags, int64 (the dataflow form of kISS-2's
+    compact, reference: kiss2_core.hpp:464-536). The flags are read in
+    chunks of ``_COMPACT_CHUNK``, each chunk's ids offset by its start;
+    each chunk's count is a host read."""
+    parts = []
+    for lo in range(0, flags.shape[0], _COMPACT_CHUNK):
+        ids = torch.nonzero(flags[lo : lo + _COMPACT_CHUNK]).flatten()
+        parts.append(ids.add_(lo) if lo else ids)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _shifted_rank_keys(rank, p, cover: int, n_keys: int) -> torch.Tensor:
+    """rank[p + j * cover] for j < ``n_keys``, 0 past the end (the rule of
+    :func:`_rank_shift`), each key straight into its 32-bit row of K1's
+    layout (ranks are below 2**32)."""
+    n = rank.shape[0] - 1
+    keys = torch.empty((n_keys, p.shape[0]), dtype=torch.int32,
+                       device=p.device)
+    for j in range(n_keys):
+        q = p + cover * j
+        keys[j] = pack.to_u32_bits(
+            torch.where(q <= n, rank[torch.clamp(q, max=n)], 0)
+        )
+    return keys
 
 
 def _tail_refine(sa, rank, rows, m: int, cover: int,
                  sort_impl=radix_sort_wide):
     """One compacted refinement round for the deep tail of an unbounded
     sort: re-sorts only the m suffixes still in tie groups (``rows``:
-    their ascending row ids, zero-filled) by MAX_RANK_KEYS shifted rank
-    lookups, writes the new order back into their own rows, updates
-    ranks in place, and re-compacts. Returns (sa, rank, rows_next,
-    m_next)."""
+    their ascending row ids, then any zero fills, which alias the sentinel
+    row 0 and re-store it) by MAX_RANK_KEYS shifted rank lookups, writes
+    the new order back into their own rows, updates ranks in place, and
+    re-compacts. The sort is stable over ascending rows, so ties keep
+    ascending positions. Returns (sa, rank, rows_next, m_next), rows_next
+    as long as ``rows``, zero-filled after its m_next ids. Adds m to the
+    counter ``sort_rows_tied``."""
+    timing.add("sort_rows_tied", m)
     n = sa.shape[0] - 1
     p = sa[rows]
-    # rank[p + j * cover], 0 past the end; each key goes straight into
-    # its 32-bit row (ranks are below 2**32)
-    keys = torch.empty((MAX_RANK_KEYS, p.shape[0]), dtype=torch.int32,
-                       device=p.device)
-    for j in range(MAX_RANK_KEYS):
-        q = p + cover * j
-        keys[j] = pack.to_u32_bits(
-            torch.where(q <= n, rank[torch.clamp(q, max=n)], 0)
-        )
+    keys = _shifted_rank_keys(rank, p, cover, MAX_RANK_KEYS)
     sorted_keys, perm = sort_impl(keys)
     del keys
     ps = p[perm]
@@ -453,13 +454,27 @@ def _tail_refine(sa, rank, rows, m: int, cover: int,
     is_fill = ps == n
     rank[ps] = torch.where(is_fill, 1, head + 1)
 
-    nxt = torch.ones_like(neq)
-    nxt[:-1] = neq[1:]
-    still = ~(neq & nxt) & ~is_fill
-    keep = torch.nonzero(still).flatten()
+    keep = torch.nonzero(_tied_flags(neq) & ~is_fill).flatten()
     rows_next = torch.zeros_like(rows)
     rows_next[: keep.shape[0]] = trows[keep]
     return sa, rank, rows_next, int(keep.shape[0])
+
+
+def _tied_round(sa, rank, rows, cover: int, n_keys: int,
+                sort_impl=radix_sort_wide):
+    """The last round of a bounded plan on the rows still tied alone
+    (``rows``: their ascending ids): sorts their suffixes by ``n_keys``
+    shifted rank lookups and writes them back into the same rows. A row
+    alone in its group is already where the whole-array round would put
+    it; the stable sort over ascending rows breaks ties by ascending
+    position, as the whole-array round's position key does. Returns (sa,
+    None, None), as a last round makes no rank, and adds the rows to the
+    counter ``sort_rows_tied``."""
+    timing.add("sort_rows_tied", rows.shape[0])
+    p = sa[rows]
+    _, perm = sort_impl(_shifted_rank_keys(rank, p, cover, n_keys))
+    sa[rows] = p[perm]
+    return sa, None, None
 
 
 def _rank_block_sort(text, ranks: dict, rank_key_spec, tail_chars: int,
@@ -491,22 +506,16 @@ def _rank_block_sort(text, ranks: dict, rank_key_spec, tail_chars: int,
     del packed
     sa = _extract_field(ops, places[-1])
     if not with_rank:
-        return sa, sa, True
-    rank, done = _ranks_of_sorted(_mask_field(ops, places[-1]), sa)
-    return sa, rank, done
+        return sa, None, None
+    return (sa, *_ranks_of_sorted(_mask_field(ops, places[-1]), sa))
 
 
-def _next_capacity(m: int, cap: int) -> int:
-    c = 1024
-    while c < m:
-        c *= 2
-    return min(c, cap)
-
-
-# unbounded sorts switch from full-array wide sorts to compacted tail
-# refinement after this many rounds (one round reaches 512 chars of
-# coverage; beyond that the active set is a small fraction on real data)
-_FULL_ROUNDS_BEFORE_TAIL = 1
+# a round re-sorts only the rows still tied, compacted, where they are at
+# most this share of all rows, else it sorts the whole array. On the card
+# the compacted round is the faster up to 0.95 of the rows at k = 256 and
+# k = -1, but its peak passes the whole-array round's above about 0.77 of
+# them at k = -1 (experiments/tied_crossover.py; PERF.md section 5)
+_TIED_SHARE_MAX = 0.75
 
 
 def _is_full(rnd: _Round, cover: int) -> bool:
@@ -521,11 +530,13 @@ def _is_full(rnd: _Round, cover: int) -> bool:
 def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
               sort_impl=radix_sort_wide):
     """Run a sort plan from the host: seed, then rounds until the plan ends
-    or every suffix is a singleton group. With ``refine_tail`` an
-    unbounded plan switches to compacted tail refinement after
-    ``_FULL_ROUNDS_BEFORE_TAIL`` full rounds (the host path of
-    ``kiss_tpu``'s ``_run_plan``); without it every round runs over the
-    whole array (the
+    or every suffix is a singleton group. With ``refine_tail`` a round
+    takes the rows still tied, compacted, where they are at most
+    ``_TIED_SHARE_MAX`` of all rows: an unbounded plan then refines them
+    until none is left (``_tail_refine``, the host path of ``kiss_tpu``'s
+    ``_run_plan``), and a bounded plan's last round, where it is full,
+    sorts them once (``_tied_round``); every other round runs over the
+    whole array. Without it every round runs over the whole array (the
     single-program path, ``k_ordered_suffix_array_device``). Both give
     the identical SA. ``sort_impl`` is the multi-word sort seam."""
     nrounds = len(plan.rounds)
@@ -537,12 +548,13 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
         "kiss.sort.seed", device=True,
         log=f"seed_sort(chars={plan.seed_chars})" if dbg else None,
     ) as sp:
-        sa, rank, done = sp.result(_seed_sort(
+        sa, rank, tied = sp.result(_seed_sort(
             text, plan.seed_chars, alphabet, nrounds > 0, sort_impl
         ))
     if nrounds == 0:
         return sa
 
+    N = text.shape[0] + 1
     # keep only the rank levels the (static) final round will reference
     save_levels = set()
     for rnd in plan.rounds:
@@ -553,42 +565,42 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
     cover = plan.seed_chars
     for i, rnd in enumerate(plan.rounds):
         is_last = i == nrounds - 1
-        need_rank = (not is_last) or plan.unbounded
-        if bool(done):
+        # the one host read a round: how many rows are still tied
+        rows = _compact_rows(tied)
+        del tied
+        m = rows.shape[0]
+        if m == 0:
             break
-        if plan.unbounded and refine_tail and i >= _FULL_ROUNDS_BEFORE_TAIL:
-            # deep-tail refinement on the compacted active set
-            N = text.shape[0] + 1
+        if i == 0:
+            timing.add("sort_rows", N)
+        compact = refine_tail and m <= _TIED_SHARE_MAX * N
+        if compact and plan.unbounded:
+            # refine the tied rows until none is left
             rank = ranks.pop(cover)
-            ranks.clear()
-            active, m = _active_rows_of(sa, rank)
-            if m == 0:
-                break
-            rows = _compact_rows(active, _next_capacity(m, N))
-            del active
             t = 0
             while m > 0:
-                ncap = _next_capacity(m, N)
-                if ncap < rows.shape[0]:
-                    rows = rows[:ncap]
                 # cover past n behaves like cover == n + 1 (all shifted
                 # keys out of range)
-                c = min(cover, N)
                 with timing.span(
                     "kiss.sort.tail", device=True,
                     log=f"tail_refine[{t}](m={m}, cover={cover})" if dbg
                     else None,
                 ) as sp:
                     sa, rank, rows, m = sp.result(_tail_refine(
-                        sa, rank, rows, m, c, sort_impl
+                        sa, rank, rows, m, min(cover, N), sort_impl
                     ))
+                rows = rows[:m]
                 cover *= MAX_RANK_KEYS
                 t += 1
             break
-        if _is_full(rnd, cover):
+        if compact and is_last and _is_full(rnd, cover):
+            run = _tied_round
+            args = (sa, ranks[cover], rows, cover, len(rnd.rank_keys),
+                    sort_impl)
+        elif _is_full(rnd, cover):
             run = _full_round
             args = (
-                text, ranks[cover], cover, len(rnd.rank_keys), need_rank,
+                text, ranks[cover], cover, len(rnd.rank_keys), not is_last,
                 sort_impl,
             )
         else:
@@ -598,17 +610,18 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, refine_tail: bool = True,
             )
             args = (
                 text, {lv: ranks[lv] for lv in level_ids}, rnd.rank_keys,
-                rnd.tail_chars, rnd.tail_offset, alphabet, need_rank,
+                rnd.tail_chars, rnd.tail_offset, alphabet, not is_last,
                 sort_impl,
             )
+        del rows
         with timing.span(
             "kiss.sort.round", device=True,
             log=f"wide_round[{i}](cover {cover}->{rnd.new_cover})" if dbg
             else None,
         ) as sp:
-            sa, rank, done = sp.result(run(*args))
+            sa, rank, tied = sp.result(run(*args))
         del args
-        if need_rank:
+        if not is_last:
             if cover not in save_levels:
                 ranks.pop(cover, None)
             ranks[rnd.new_cover] = rank

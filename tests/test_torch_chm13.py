@@ -160,16 +160,16 @@ def test_pass_plan_on_counts_of_2_31_or_more():
     assert len(radix_sort.pass_plan(signed, n)) == 4
 
 
-@pytest.mark.parametrize("capacity", [1, 37, 500, 2_000])
-def test_compact_rows_in_chunks(monkeypatch, capacity):
-    monkeypatch.setattr(suffix_sort, "_COMPACT_CHUNK", 101)
-    rng = np.random.default_rng(capacity)
+@pytest.mark.parametrize("chunk", [1, 37, 500, 2_000])
+def test_compact_rows_in_chunks(monkeypatch, chunk):
+    """Every set flag's id, ascending, whatever the chunk the flags are
+    read in (one chunk, several, a last one cut short)."""
+    monkeypatch.setattr(suffix_sort, "_COMPACT_CHUNK", chunk)
+    rng = np.random.default_rng(chunk)
     flags = rng.random(10_007) < 0.05
-    got = suffix_sort._compact_rows(torch.from_numpy(flags), capacity)
-    want = np.zeros(capacity, dtype=np.int64)
-    ids = np.flatnonzero(flags)[:capacity]
-    want[: ids.size] = ids
-    assert np.array_equal(got.numpy(), want)
+    got = suffix_sort._compact_rows(torch.from_numpy(flags))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), np.flatnonzero(flags))
 
 
 def test_stable_sort_and_permutation_checks():

@@ -31,7 +31,10 @@ from kiss_tpu_torch.ops.radix_sort import (
     radix_sort_words,
     radix_sort_words_plain,
 )
-from kiss_tpu_torch.ops.suffix_sort import k_ordered_suffix_array
+from kiss_tpu_torch.ops.suffix_sort import (
+    k_ordered_suffix_array,
+    k_ordered_suffix_array_device,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -828,6 +831,31 @@ def test_sa_on_card_equals_cpu(cuda):
             k_ordered_suffix_array(text, k, device="cuda"),
             k_ordered_suffix_array(text, k, device="cpu"),
         )
+
+
+@pytest.mark.parametrize("strategy", ["wide", "doubling"])
+@pytest.mark.parametrize("k", [256, -1])
+def test_tied_rounds_equal_whole_array_rounds(cuda, k, strategy):
+    """The host path, whose rounds take the rows still tied alone, equals
+    the single-program form, every round over the whole array, element
+    for element, on a synthetic genome of 2**22 characters (its first
+    2**21 are fresh sequence; a few percent of the rows stay tied after
+    the wide seed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kiss_tpu_torch.utils import timing
+    from kiss_tpu_torch.utils.synth import synth_genome
+
+    text = torch.from_numpy(synth_genome(1 << 22, seed=5)).to(cuda)
+    timing.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = k_ordered_suffix_array(text, k, as_numpy=False, device=cuda,
+                                     strategy=strategy)
+    tied = sum(r.counts.get("sort_rows_tied", 0) for r in timing.RECORDS)
+    timing.reset_spans()
+    assert tied > 0  # the compacted path ran
+    want = k_ordered_suffix_array_device(text, k, strategy=strategy)
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------- P1-P7

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from kiss_tpu.ops import pack as jpack
 from kiss_tpu.ops import suffix_sort as jss
@@ -18,6 +19,7 @@ from kiss_tpu_torch.ops.radix_sort import (
     radix_sort_words,
     radix_sort_words_plain,
 )
+from kiss_tpu_torch.utils import timing
 from tests import oracle
 
 torch.set_num_threads(1)
@@ -141,21 +143,24 @@ def test_device_form_equals_host_form(k):
 @pytest.mark.parametrize("seed_chars", [64, 16])
 def test_seed_sort_matches_kiss_tpu(seed_chars):
     """The seed sort on its words from ``pack.seed_key_words``: SA, rank
-    and the all-singleton flag equal ``kiss_tpu``'s on the same text."""
+    and the flags of the tied rows (none set: ``kiss_tpu``'s all-singleton
+    flag) equal ``kiss_tpu``'s on the same text."""
     text = oracle.repeat_heavy_dna(N_TEXT, unit=37, seed=5)
     sa_j, rank_j, done_j = jss._seed_sort(jnp.asarray(text), seed_chars,
                                           jpack.DNA, True)
-    sa_t, rank_t, done_t = tss._seed_sort(torch.from_numpy(text), seed_chars,
+    sa_t, rank_t, tied_t = tss._seed_sort(torch.from_numpy(text), seed_chars,
                                           tss.pack.DNA, True)
     np.testing.assert_array_equal(sa_t.numpy(), np.asarray(sa_j))
     np.testing.assert_array_equal(rank_t.numpy(), np.asarray(rank_j))
-    assert bool(done_t) == bool(done_j)
+    active_j, _ = jss._active_rows_of(sa_j, rank_j)
+    np.testing.assert_array_equal(tied_t.numpy(), np.asarray(active_j))
+    assert (not tied_t.any()) == bool(done_j)
 
 
 def test_tail_refine_step_matches_kiss_tpu():
-    """One compacted refinement step on identical state, with a capacity
-    above the active count (fill rows alias row 0 and write the
-    sentinel through duplicate indices)."""
+    """One compacted refinement step on identical state, from the seed's
+    tied rows, with a capacity above the active count (fill rows alias
+    row 0 and write the sentinel through duplicate indices)."""
     text = oracle.repeat_heavy_dna(N_TEXT, unit=37, seed=22)
     n = len(text)
     sa_j, rank_j, _ = jss._seed_sort(jnp.asarray(text), 64, jpack.DNA, True)
@@ -165,11 +170,12 @@ def test_tail_refine_step_matches_kiss_tpu():
     assert cap > m > 0
     rows_j = jss._compact_rows(active_j, cap)
 
-    sa_t = torch.from_numpy(np.asarray(sa_j).astype(np.int64))
-    rank_t = torch.from_numpy(np.asarray(rank_j).astype(np.int64))
-    active_t, m_t = tss._active_rows_of(sa_t, rank_t)
-    assert m_t == m
-    rows_t = tss._compact_rows(active_t, cap)
+    sa_t, rank_t, tied_t = tss._seed_sort(torch.from_numpy(text), 64,
+                                          tss.pack.DNA, True)
+    ids = tss._compact_rows(tied_t)
+    assert ids.shape[0] == m
+    rows_t = torch.zeros(cap, dtype=torch.int64)
+    rows_t[:m] = ids
     np.testing.assert_array_equal(rows_t.numpy(), np.asarray(rows_j))
 
     out_j = jss._tail_refine(sa_j, rank_j, rows_j, jnp.int32(64))
@@ -177,6 +183,104 @@ def test_tail_refine_step_matches_kiss_tpu():
     for name, a, b in zip(("sa", "rank", "rows"), out_j[:3], out_t[:3]):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
     assert out_t[3] == int(out_j[3])
+
+
+def _tied_rule_texts():
+    """N_TEXT characters each, on both sides of the tied-share rule at the
+    64-character seed: a few planted repeats in random DNA (compacted),
+    all-A and AC-periodic (every row tied: the whole array), and two
+    repeat-heavy texts just below and just above the crossover (74.4% and
+    76.2% of the rows tied)."""
+    planted = oracle.random_dna(N_TEXT, seed=31)
+    planted[900:1100] = planted[100:300]
+    planted[1500:1700] = planted[100:300]
+    return {
+        "planted": planted,
+        "all-A": np.zeros(N_TEXT, np.int8),
+        "AC": np.tile(np.array([0, 1], np.int8), N_TEXT // 2),
+        "repeat-heavy below": oracle.repeat_heavy_dna(N_TEXT, unit=37,
+                                                      seed=6),
+        "repeat-heavy above": oracle.repeat_heavy_dna(N_TEXT, unit=37,
+                                                      seed=1),
+    }
+
+
+def _tied_rows_np(text: np.ndarray, c: int) -> int:
+    """Suffixes that share their first c characters (a shorter suffix
+    only with an equal one) with another, by numpy's unique over the
+    windows: the rows still tied after a c-character seed."""
+    n = len(text)
+    pad = np.full(n + c, -1, np.int16)
+    pad[:n] = text
+    win = np.lib.stride_tricks.sliding_window_view(pad, c)[: n + 1]
+    _, inv, cnt = np.unique(win, axis=0, return_inverse=True,
+                            return_counts=True)
+    return int((cnt[inv.ravel()] > 1).sum())
+
+
+def _traced(text, k, strategy="wide"):
+    """(SA, the span records) of one host-path sort under a CPU
+    profiler."""
+    timing.reset_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            sa = tss.k_ordered_suffix_array(text, k, strategy=strategy,
+                                            device="cpu")
+        return sa, list(timing.RECORDS)
+    finally:
+        timing.reset_spans()
+
+
+@pytest.mark.parametrize("strategy", ["wide", "doubling"])
+@pytest.mark.parametrize("k", [100, 128, 256, -1])
+def test_tied_rounds_bit_identical_to_kiss_tpu(k, strategy):
+    """On texts that take each branch of the tied-share rule, the SA
+    equals ``kiss_tpu``'s and the single-program form's (every round over
+    the whole array)."""
+    for name, text in _tied_rule_texts().items():
+        want = jss.k_ordered_suffix_array(text, k, strategy=strategy)
+        got = tss.k_ordered_suffix_array(text, k, strategy=strategy,
+                                         device="cpu")
+        np.testing.assert_array_equal(got, want, err_msg=f"{name} k={k}")
+        full = tss.k_ordered_suffix_array_device(torch.from_numpy(text), k,
+                                                 strategy=strategy)
+        np.testing.assert_array_equal(full.numpy(), want.astype(np.int64),
+                                      err_msg=f"{name} k={k} device form")
+
+
+@pytest.mark.parametrize("k", [256, -1])
+@pytest.mark.parametrize("name", sorted(_tied_rule_texts()))
+def test_tied_share_rule_picks_the_path(name, k):
+    """After the 64-character seed, a round runs on the tied rows alone
+    where they are at most ``_TIED_SHARE_MAX`` of the rows, else over the
+    whole array; the counters say so: ``sort_rows`` N once a sort, and
+    ``sort_rows_tied`` each compacted round's rows, the first the seed's
+    tied rows by numpy's count."""
+    text = _tied_rule_texts()[name]
+    N = len(text) + 1
+    tied = _tied_rows_np(text, 64)
+    sa, recs = _traced(text, k)
+    np.testing.assert_array_equal(sa, oracle.k_ordered_sa(
+        text, k if k > 0 else None))
+    names = [r.name for r in recs]
+    sort = recs[names.index("kiss.sort")].counts
+    assert sort.get("sort_rows") == (N if tied else None)
+    compact = [r.counts.get("sort_rows_tied") for r in recs
+               if r.name in ("kiss.sort.round", "kiss.sort.tail")]
+    if 0 < tied <= tss._TIED_SHARE_MAX * N:
+        assert compact[0] == tied
+        assert all(compact)
+        # at k = -1 the tail refinement takes over from the seed
+        assert ("kiss.sort.round" in names) == (k > 0)
+    elif tied:
+        # the first round over the whole array; at k = -1 the tail
+        # refinement may take over after it
+        assert compact[0] is None and names[2] == "kiss.sort.round"
+        if k > 0:
+            assert compact == [None]
+    # the texts' sides of the rule
+    compacted = name in ("planted", "repeat-heavy below")
+    assert (0 < tied <= tss._TIED_SHARE_MAX * N) == compacted
 
 
 def test_sorter_facades_and_limits():

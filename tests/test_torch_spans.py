@@ -22,12 +22,21 @@ from kiss_tpu_torch.utils import timing
 
 
 def _text() -> np.ndarray:
-    """20,000 characters of a 13-character period with a 450-character
-    break: the full sort needs a round and two tail refinements."""
+    """40,000 characters: a 4,200-character segment twice, and between and
+    after its copies 108 copies of a 280-character unit, each followed by
+    10 random characters. 81% of the rows are tied after the 64-character
+    seed (the short copies and the long ones), 20% after 512 characters
+    (the long copies), 2% after 4,096: the full sort needs a round over the
+    whole array, then two tail refinements."""
     rng = np.random.default_rng(3)
-    text = np.tile(rng.integers(0, 4, 13).astype(np.int8), 2000)[:20000]
-    text[5000:5450] = rng.integers(0, 4, 450)
-    return text
+    unit = rng.integers(0, 4, 280).astype(np.int8)
+    long = rng.integers(0, 4, 4200).astype(np.int8)
+    mid = np.concatenate([np.concatenate([unit, rng.integers(0, 4, 10)])
+                          for _ in range(108)]).astype(np.int8)
+    half = mid.shape[0] // 2
+    text = np.concatenate([long, mid[:half], long, mid[half:]])
+    return np.concatenate([text, rng.integers(0, 4, 40000 - text.shape[0])
+                           .astype(np.int8)])
 
 
 @pytest.fixture(autouse=True)
@@ -93,8 +102,8 @@ def test_verbose_lines_keep_their_text(caplog):
     assert lines == [
         "seed_sort(chars=64) elapsed <t>",
         "wide_round[0](cover 64->512) elapsed <t>",
-        "tail_refine[0](m=18529, cover=512) elapsed <t>",
-        "tail_refine[1](m=11361, cover=4096) elapsed <t>",
+        "tail_refine[0](m=7938, cover=512) elapsed <t>",
+        "tail_refine[1](m=770, cover=4096) elapsed <t>",
         "k_ordered_suffix_array elapsed <t>",
         "fmindex build elapsed <t>",
     ]
@@ -140,9 +149,14 @@ def test_summary_self_time_is_duration_less_children(traced):
                                                   rel=1e-12, abs=1e-9)
         assert 0 <= s["self_host_ms"] <= s["host_ms"]
         assert s["device_ms"] is None  # no CUDA in use
-        # K1's counters count the card's sorts; K2's its patterns anywhere
-        assert s["counts"] == ({"k2_queries": 100, "k2_lookup_reads": 0}
-                               if name == "kiss.query.search" else {})
+        # K1's counters count the card's sorts; K2's its patterns anywhere,
+        # the sort's its rows and the tail's tied rows (_text) anywhere
+        sort = {"sort_rows": 40_001, "sort_rows_tied": 7_938 + 770}
+        want = {"kiss.query.search": {"k2_queries": 100,
+                                      "k2_lookup_reads": 0},
+                "kiss.build": sort, "kiss.sort": sort,
+                "kiss.sort.tail": {"sort_rows_tied": 7_938 + 770}}
+        assert s["counts"] == want.get(name, {})
 
 
 def test_events_are_host_events_only(traced):
